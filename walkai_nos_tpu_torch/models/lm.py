@@ -1,0 +1,465 @@
+"""Decoder-only language model: the paged decode path of the serving
+engine, in PyTorch.
+
+Port of `walkai_nos_tpu/models/lm.py`. `LMConfig` keeps every field,
+default and validation of the JAX config, so configurations, capture
+fingerprints and replay keys carry over; the knobs this slice does not
+run (experts, tensor parallelism, int8 storage, ring/ulysses attention)
+raise NotImplementedError at construction.
+
+`DecoderLM` runs the decode forward over a PAGED KV cache: each layer
+holds a shared pool of 128-row K/V blocks ([paged_blocks, kv_heads,
+PAGE_ROWS, head_dim]); a per-slot block table maps logical cache block
+j of slot b to a pool block. The pools live in a `PagedCache` the caller
+owns and are written IN PLACE (the JAX model returns a new cache from a
+donated buffer). The per-slot cache index is an argument, not cache
+state: the caller advances it by the step count after each forward.
+
+Attention routes exactly as `CausalAttention.__call__` does in JAX:
+
+- a short step (<= MAX_KERNEL_STEPS positions) on a CUDA tensor with
+  `fused_qkv=True` takes the fused QKV + rotary + paged attention
+  kernels (`ops/decode_attention.fused_qkv_paged_attention`), then
+  scatters the fresh rows;
+- otherwise the unfused composition: projection, rotary, scatter, then
+  the paged attention kernel for short steps (plain version on the CPU)
+  or, for wide prefill chunks, a gather of the slot's blocks and plain
+  masked attention (`_masked_cache_attention`).
+
+Parameter layout follows flax (see `models/convert.py`): Dense kernels
+are stored [in, out], the layout the fused QKV kernel reads.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from walkai_nos_tpu_torch.device import resolve_device
+from walkai_nos_tpu_torch.ops.decode_attention import (
+    MAX_KERNEL_STEPS,
+    PAGE_ROWS,
+    fused_qkv_paged_attention,
+    gather_paged_cache,
+    paged_decode_attention,
+    rope_tables,
+    rotate,
+    scatter_paged_rows,
+    split_qkv,
+)
+
+__all__ = [
+    "DecoderLM",
+    "LMConfig",
+    "LM_SMALL",
+    "LM_TINY",
+    "PagedCache",
+    "apply_rope",
+]
+
+_DTYPES = {
+    "bfloat16": torch.bfloat16,
+    "float32": torch.float32,
+    "float16": torch.float16,
+}
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    """Field for field the JAX `LMConfig` (see its comments for what
+    each knob means)."""
+
+    vocab_size: int = 32000
+    hidden_dim: int = 512
+    num_layers: int = 8
+    num_heads: int = 8
+    mlp_ratio: int = 4
+    max_seq_len: int = 2048
+    dtype: str = "bfloat16"
+    num_kv_heads: int | None = None
+    norm: str = "layernorm"
+    mlp: str = "gelu"
+    mlp_dim: int | None = None
+    rope: bool = False
+    rope_theta: float = 10000.0
+    use_bias: bool = True
+    use_ring_attention: bool = False
+    use_ulysses_attention: bool = False
+    num_experts: int = 0
+    moe_every: int = 2
+    expert_top_k: int = 2
+    capacity_factor: float = 1.25
+    layer_norm_eps: float = 1e-6
+    head_bias: bool = True
+    remat: bool = False
+    cache_len: int | None = None
+    decode_kernel: bool = False
+    ragged_decode: bool = False
+    paged_decode: bool = False
+    paged_blocks: int = 0
+    fused_qkv: bool = True
+    kv_dtype: str = "model"
+    w_dtype: str = "model"
+    tp_devices: int = 1
+
+    def __post_init__(self):
+        for knob, value in (
+            ("kv_dtype", self.kv_dtype), ("w_dtype", self.w_dtype)
+        ):
+            if value not in ("model", "int8", "int8-sim"):
+                raise ValueError(
+                    f"unknown {knob} {value!r}: expected one of "
+                    f"'model', 'int8', 'int8-sim'"
+                )
+        if self.num_kv_heads is not None and (
+            self.num_kv_heads < 1
+            or self.num_heads % self.num_kv_heads != 0
+        ):
+            raise ValueError(
+                f"num_kv_heads must divide num_heads="
+                f"{self.num_heads}; got {self.num_kv_heads}"
+            )
+        if self.norm not in ("layernorm", "rmsnorm"):
+            raise ValueError(f"unknown norm {self.norm!r}")
+        if self.mlp not in ("gelu", "swiglu"):
+            raise ValueError(f"unknown mlp {self.mlp!r}")
+        if self.tp_devices < 1:
+            raise ValueError(
+                f"tp_devices must be >= 1; got {self.tp_devices}"
+            )
+        if self.tp_devices > 1:
+            tp = self.tp_devices
+            if self.num_heads % tp != 0:
+                raise ValueError(
+                    f"tp_devices={tp} must divide num_heads="
+                    f"{self.num_heads}: attention heads shard over the "
+                    f"model axis"
+                )
+            mlp_width = self.mlp_dim or self.mlp_ratio * self.hidden_dim
+            if mlp_width % tp != 0:
+                raise ValueError(
+                    f"tp_devices={tp} must divide the MLP width "
+                    f"{mlp_width}: gate/fc1 split their output "
+                    f"channels over the model axis"
+                )
+            kvh = self.num_kv_heads or self.num_heads
+            if kvh % tp != 0 and tp % kvh != 0:
+                raise ValueError(
+                    f"tp_devices={tp} must divide num_kv_heads={kvh} "
+                    f"(kv-split) or be a multiple of it "
+                    f"(head-replicated K/V); got neither"
+                )
+        if self.paged_decode:
+            if not self.ragged_decode:
+                raise ValueError(
+                    "paged_decode requires ragged_decode (the block "
+                    "table is per-slot, so the cache index must be too)"
+                )
+            if self.paged_blocks < 2:
+                raise ValueError(
+                    f"paged_decode needs paged_blocks >= 2 (block 0 is "
+                    f"the reserved scratch block); got {self.paged_blocks}"
+                )
+        if self.dtype not in _DTYPES:
+            raise ValueError(f"unknown dtype {self.dtype!r}")
+        # Knobs of the JAX model that later slices of the port add.
+        for knob, on, item in (
+            ("num_experts > 0", self.num_experts > 0, "MoE (moe.py)"),
+            ("tp_devices > 1", self.tp_devices > 1, "parallelism"),
+            ("kv_dtype != 'model'", self.kv_dtype != "model",
+             "int8 KV and int8 weights"),
+            ("w_dtype != 'model'", self.w_dtype != "model",
+             "int8 KV and int8 weights"),
+            ("use_ring_attention", self.use_ring_attention, "parallelism"),
+            ("use_ulysses_attention", self.use_ulysses_attention,
+             "parallelism"),
+        ):
+            if on:
+                raise NotImplementedError(
+                    f"{knob} is not ported yet (ROADMAP: {item})"
+                )
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+    @property
+    def mlp_width(self) -> int:
+        return self.mlp_dim or self.mlp_ratio * self.hidden_dim
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_dim // self.num_heads
+
+    @property
+    def kv_storage_dtype(self) -> torch.dtype:
+        return self.compute_dtype
+
+
+LM_TINY = LMConfig(
+    vocab_size=256, hidden_dim=128, num_layers=2, num_heads=4,
+    max_seq_len=128,
+)
+LM_SMALL = LMConfig()
+
+
+def apply_rope(
+    x: torch.Tensor, positions: torch.Tensor, theta: float
+) -> torch.Tensor:
+    """Rotary position embedding, HF half-split convention. x: [batch,
+    heads, seq, head_dim]; positions: [seq] or [batch, seq]. Angles in
+    f32, result in x's dtype."""
+    cos, sin = rope_tables(positions, x.shape[-1], theta)
+    if positions.dim() == 1:
+        cos, sin = cos[None, None], sin[None, None]
+    else:
+        cos, sin = cos[:, None], sin[:, None]
+    return rotate(x, cos, sin)
+
+
+def _param(shape, dtype, device, gen, std=None, fill=None):
+    if std is not None:
+        t = torch.randn(shape, generator=gen, device=device) * std
+    else:
+        t = torch.full(shape, float(fill), device=device)
+    return nn.Parameter(t.to(dtype), requires_grad=False)
+
+
+class Dense(nn.Module):
+    """flax `nn.Dense`: kernel [in, out] and bias in `dtype`; the input
+    is cast to `dtype` and the bias added in `dtype`."""
+
+    def __init__(self, d_in, d_out, *, bias, dtype, device, gen):
+        super().__init__()
+        self.kernel = _param((d_in, d_out), dtype, device, gen, std=0.02)
+        self.bias = (
+            _param((d_out,), dtype, device, gen, fill=0.0) if bias else None
+        )
+
+    def forward(self, x):
+        y = x.to(self.kernel.dtype) @ self.kernel
+        return y if self.bias is None else y + self.bias
+
+
+class Norm(nn.Module):
+    """flax `LayerNorm` / `RMSNorm` with dtype=f32: f32 statistics
+    (LayerNorm's variance as mean(x^2) - mean(x)^2), f32 output."""
+
+    def __init__(self, cfg: LMConfig, device):
+        super().__init__()
+        d = cfg.hidden_dim
+        self.rms = cfg.norm == "rmsnorm"
+        self.eps = cfg.layer_norm_eps
+        self.scale = _param((d,), torch.float32, device, None, fill=1.0)
+        self.bias = None if self.rms else _param(
+            (d,), torch.float32, device, None, fill=0.0
+        )
+
+    def forward(self, x):
+        x = x.float()
+        if self.rms:
+            var = torch.mean(x * x, dim=-1, keepdim=True)
+            return x * (torch.rsqrt(var + self.eps) * self.scale)
+        mean = torch.mean(x, dim=-1, keepdim=True)
+        var = torch.clamp(
+            torch.mean(x * x, dim=-1, keepdim=True) - mean * mean, min=0.0
+        )
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
+
+
+def _masked_cache_attention(q, k_all, v_all, idx):
+    """Dense masked attention over a gathered cache view, per-row (ragged)
+    index: the wide-prefill tail. q: [batch, heads, steps, d]; k/v_all:
+    [batch, kv_heads, cache_len, d]; position p is visible to query
+    row r iff p <= idx + r. GQA computes per (slot, kv head) cell with
+    f32 accumulation; MHA mirrors the JAX branch (f32 scores, PV in v's
+    dtype)."""
+    batch, heads, steps, hd = q.shape
+    kvh, cache_len = k_all.shape[1], k_all.shape[2]
+    q_pos = idx.long()[:, None] + torch.arange(steps, device=q.device)
+    k_pos = torch.arange(cache_len, device=q.device)
+    mask = k_pos[None, None, :] <= q_pos[..., None]  # [b, steps, cache]
+    scale = hd ** -0.5
+    if kvh != heads:
+        g = heads // kvh
+        qg = q.reshape(batch * kvh, g * steps, hd).float()
+        kg = k_all.reshape(batch * kvh, cache_len, hd)
+        vg = v_all.reshape(batch * kvh, cache_len, hd)
+        logits = torch.bmm(qg, kg.float().transpose(1, 2)) * scale
+        gmask = mask[:, None, None].expand(
+            batch, kvh, g, steps, cache_len
+        ).reshape(batch * kvh, g * steps, cache_len)
+        logits = torch.where(gmask, logits, torch.full_like(logits, -1e30))
+        probs = torch.softmax(logits, dim=-1)
+        o = torch.bmm(probs.to(vg.dtype).float(), vg.float()).to(q.dtype)
+        return o.reshape(batch, heads, steps, hd)
+    logits = torch.einsum(
+        "bhqd,bhkd->bhqk", q.float(), k_all.float()
+    ) * scale
+    logits = torch.where(
+        mask[:, None], logits, torch.full_like(logits, -1e30)
+    )
+    probs = torch.softmax(logits, dim=-1)
+    return torch.matmul(probs.to(v_all.dtype), v_all)
+
+
+class CausalAttention(nn.Module):
+    def __init__(self, cfg: LMConfig, device, gen):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.hidden_dim
+        kw = dict(dtype=cfg.compute_dtype, device=device, gen=gen)
+        self.qkv = Dense(
+            d, d + 2 * cfg.kv_heads * cfg.head_dim, bias=cfg.use_bias, **kw
+        )
+        self.out_proj = Dense(d, d, bias=cfg.use_bias, **kw)
+
+    def forward(self, x, k_pool, v_pool, table, index):
+        c = self.cfg
+        b, s = x.shape[0], x.shape[1]
+        theta = c.rope_theta if c.rope else None
+        if c.fused_qkv and s <= MAX_KERNEL_STEPS and x.is_cuda:
+            o, k_new, v_new = fused_qkv_paged_attention(
+                x.to(c.compute_dtype), self.qkv.kernel, self.qkv.bias,
+                k_pool, v_pool, table, index,
+                num_heads=c.num_heads, rope_theta=theta,
+            )
+            scatter_paged_rows(k_pool, v_pool, k_new, v_new, table, index)
+        else:
+            o = self._unfused(x, k_pool, v_pool, table, index)
+        o = o.transpose(1, 2).reshape(b, s, c.hidden_dim)
+        return self.out_proj(o)
+
+    def _unfused(self, x, k_pool, v_pool, table, index):
+        """Projection -> split -> rotary -> scatter -> paged attention
+        (JAX `_paged_decode_attention` + `_paged_scatter_and_attend`)."""
+        c = self.cfg
+        q, k, v = split_qkv(
+            self.qkv(x), index, num_heads=c.num_heads, kv_heads=c.kv_heads,
+            rope_theta=c.rope_theta if c.rope else None,
+        )
+        scatter_paged_rows(k_pool, v_pool, k, v, table, index)
+        if x.shape[1] <= MAX_KERNEL_STEPS:
+            return paged_decode_attention(q, k_pool, v_pool, table, index)
+        return _masked_cache_attention(
+            q, gather_paged_cache(k_pool, table),
+            gather_paged_cache(v_pool, table), index,
+        )
+
+
+class DecoderBlock(nn.Module):
+    def __init__(self, cfg: LMConfig, device, gen):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(
+            bias=cfg.use_bias, dtype=cfg.compute_dtype, device=device,
+            gen=gen,
+        )
+        self.norm1 = Norm(cfg, device)
+        self.attn = CausalAttention(cfg, device, gen)
+        self.norm2 = Norm(cfg, device)
+        if cfg.mlp == "swiglu":
+            self.gate = Dense(cfg.hidden_dim, cfg.mlp_width, **kw)
+        self.fc1 = Dense(cfg.hidden_dim, cfg.mlp_width, **kw)
+        self.fc2 = Dense(cfg.mlp_width, cfg.hidden_dim, **kw)
+
+    def forward(self, x, k_pool, v_pool, table, index):
+        x = x + self.attn(self.norm1(x), k_pool, v_pool, table, index)
+        h = self.norm2(x)
+        if self.cfg.mlp == "swiglu":
+            h = F.silu(self.gate(h)) * self.fc1(h)
+        else:
+            h = F.gelu(self.fc1(h), approximate="tanh")
+        return x + self.fc2(h)
+
+
+@dataclass
+class PagedCache:
+    """Per-layer K/V block pools, [paged_blocks, kv_heads, PAGE_ROWS,
+    head_dim] each, written in place by `DecoderLM.forward`."""
+
+    k: list
+    v: list
+
+    @classmethod
+    def zeros(cls, cfg: LMConfig, device) -> "PagedCache":
+        if not cfg.paged_decode:
+            raise ValueError("a paged cache needs a paged_decode config")
+        shape = (cfg.paged_blocks, cfg.kv_heads, PAGE_ROWS, cfg.head_dim)
+
+        def pool():
+            return torch.zeros(
+                shape, dtype=cfg.kv_storage_dtype, device=device
+            )
+
+        return cls(
+            [pool() for _ in range(cfg.num_layers)],
+            [pool() for _ in range(cfg.num_layers)],
+        )
+
+
+class Embed(nn.Module):
+    def __init__(self, cfg: LMConfig, device, gen):
+        super().__init__()
+        self.embedding = _param(
+            (cfg.vocab_size, cfg.hidden_dim), cfg.compute_dtype, device,
+            gen, std=0.02,
+        )
+
+    def forward(self, tokens):
+        return self.embedding[tokens.long()]
+
+
+class DecoderLM(nn.Module):
+    """The decoder LM's paged decode forward. Weights are random from
+    `seed` (normal, std 0.02; norms at 1, biases at 0) until
+    `models/convert.py` loads a JAX tree. `device=None` means `cuda`."""
+
+    def __init__(self, cfg: LMConfig, *, device=None, seed: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        dev = resolve_device(device)
+        self.device = dev
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        self.embed = Embed(cfg, dev, gen)
+        self.pos_embed = None
+        if not cfg.rope:
+            self.pos_embed = _param(
+                (1, cfg.max_seq_len, cfg.hidden_dim), torch.float32, dev,
+                gen, std=0.02,
+            )
+        self.blocks = nn.ModuleList(
+            DecoderBlock(cfg, dev, gen) for _ in range(cfg.num_layers)
+        )
+        self.norm = Norm(cfg, dev)
+        self.head = Dense(
+            cfg.hidden_dim, cfg.vocab_size, bias=cfg.head_bias,
+            dtype=torch.float32, device=dev, gen=gen,
+        )
+
+    def forward(self, tokens, cache: PagedCache, table, index):
+        """tokens [batch, steps] at positions index .. index+steps-1 of
+        each slot -> f32 logits [batch, steps, vocab]. Writes the new
+        K/V rows into `cache` through `table` ([batch, nlog] block ids);
+        `index` ([batch] int) is the caller's to advance."""
+        c = self.cfg
+        x = self.embed(tokens)
+        if self.pos_embed is not None:
+            # Per-row slices of the position table with XLA's
+            # dynamic_slice clamping: a start past max_seq_len - steps
+            # (freed slots keep stepping) reads the table's last rows.
+            steps = tokens.shape[1]
+            start = torch.clamp(index.long(), 0, c.max_seq_len - steps)
+            rows = start[:, None] + torch.arange(steps, device=x.device)
+            x = x + self.pos_embed[0][rows].to(x.dtype)
+        for i, block in enumerate(self.blocks):
+            x = block(x, cache.k[i], cache.v[i], table, index)
+        return self.head(self.norm(x))
+

@@ -1,0 +1,159 @@
+"""The serving engine's device programs and records.
+
+`models/serve.py` owns the host logic (admission, block books, commit);
+this module holds what runs on the device per dispatch, with the JAX
+engine's semantics (`walkai_nos_tpu/models/serve.py`):
+
+- `decode_chunk` is `_decode_scan`: every slot advances `chunk_steps`
+  single-token steps, sampling each token, and the chunk returns
+  [slots, 1 + chunk_steps] tokens whose column 0 is the chunk's input
+  token (how the host learns a newly live slot's first token).
+- `run_lane` is `target_lane`: the prefill lane's [P, W] prompt chunks,
+  each row at its own start position through its own block table;
+  rows that finish their prompt sample the slot's first token and
+  write the slot's state.
+
+Shapes are fixed by `slots`, `prefill_lanes` and `prefill_chunk` (the
+lane always runs all `prefill_lanes` rows over the full table width),
+so a row's output never depends on what shares the dispatch, even
+through stock GEMMs. The paged pools are updated in place (JAX donates
+them).
+
+Sampling is counter-based (`models/decode.py`): slot s draws token n of
+its request with (seed, n); the lane draws the first token with n = 0.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from walkai_nos_tpu_torch.models.decode import sample_rows
+from walkai_nos_tpu_torch.models.lm import DecoderLM, PagedCache
+
+__all__ = ["SlotState", "decode_chunk", "run_lane", "to_device"]
+
+
+@dataclass
+class _Request:
+    rid: int
+    prompt: np.ndarray  # [len] int32
+    max_new_tokens: int
+    eos_id: int | None
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int = 0
+    tokens: list = field(default_factory=list)
+    done: bool = False
+    submitted_at: float = 0.0
+    first_token_at: float = 0.0
+    completed_at: float = 0.0
+    truncated: bool = False
+    trace_id: str | None = None
+
+
+@dataclass
+class _Prefill:
+    """A request part-way through the prefill lane (the JAX engine's
+    `_Prefill`): `consumed` prompt tokens written through `blocks`; the
+    first `cached` tokens are shared prefix-index blocks it must never
+    write; `pending` holds its own inserted index nodes awaiting their
+    writing chunk; `resv` is its unallocated worst-case decode blocks."""
+
+    req: _Request
+    slot: int
+    blocks: list
+    consumed: int = 0
+    cached: int = 0
+    nodes: list = field(default_factory=list)
+    pending: list = field(default_factory=list)
+    resv: int = 0
+
+
+@dataclass
+class SlotState:
+    """Per-slot device state: the pools, the shared cache index, the
+    next input token, the sampling knobs, and the draw counter."""
+
+    cache: PagedCache
+    index: torch.Tensor     # [slots] int32 cache index (write head)
+    tokens: torch.Tensor    # [slots] int64 next input token
+    temps: torch.Tensor     # [slots] f32
+    topks: torch.Tensor     # [slots] int64
+    topps: torch.Tensor     # [slots] f32
+    seeds: torch.Tensor     # [slots] int64
+    counters: torch.Tensor  # [slots] int64 tokens drawn so far
+
+    @classmethod
+    def zeros(cls, cache: PagedCache, slots: int, device) -> "SlotState":
+        def z(dtype):
+            return torch.zeros(slots, dtype=dtype, device=device)
+
+        return cls(
+            cache, z(torch.int32), z(torch.int64), z(torch.float32),
+            z(torch.int64), torch.ones(slots, device=device), z(torch.int64),
+            z(torch.int64),
+        )
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> device tensor without stalling the stream: CUDA
+    uploads go through pinned memory, asynchronously."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+@torch.inference_mode()
+def decode_chunk(
+    model: DecoderLM, st: SlotState, table: torch.Tensor, chunk_steps: int
+) -> torch.Tensor:
+    """Advance every slot `chunk_steps` tokens; returns [slots,
+    1 + chunk_steps] int64 tokens (column 0 = the chunk's input)."""
+    first = st.tokens
+    tok = first
+    out = []
+    for _ in range(chunk_steps):
+        logits = model(tok[:, None], st.cache, table, st.index)
+        st.index += 1
+        tok = sample_rows(
+            logits[:, -1].float(), st.temps, st.topks, st.topps,
+            st.seeds, st.counters,
+        )
+        st.counters += 1
+        out.append(tok)
+    st.tokens = tok
+    return torch.stack([first] + out, dim=1)
+
+
+@torch.inference_mode()
+def run_lane(model: DecoderLM, st: SlotState, lane: dict) -> None:
+    """One prefill-lane forward. `lane` holds device tensors: `tok`
+    [P, W], `start` [P], `table` [P, nlog], `true_len` [P] and the
+    per-row knobs `temp`/`topk`/`topp`/`seed` [P]; `fin_rows` / `fin_slots`
+    (host-built, possibly empty) name the rows that finish their prompt
+    and the slots they flip."""
+    tok = lane["tok"]
+    logits = model(tok, st.cache, lane["table"], lane["start"])
+    rows, slots = lane["fin_rows"], lane["fin_slots"]
+    if rows.numel() == 0:
+        return
+    true_len = lane["true_len"][rows]
+    last = torch.clamp(true_len - lane["start"][rows] - 1, 0, tok.shape[1] - 1)
+    fl = logits[rows, last].float()
+    seed = lane["seed"][rows]
+    first = sample_rows(
+        fl, lane["temp"][rows], lane["topk"][rows], lane["topp"][rows],
+        seed, torch.zeros_like(seed),
+    )
+    st.index[slots] = true_len
+    st.tokens[slots] = first
+    st.temps[slots] = lane["temp"][rows]
+    st.topks[slots] = lane["topk"][rows]
+    st.topps[slots] = lane["topp"][rows]
+    st.seeds[slots] = seed
+    st.counters[slots] = 1

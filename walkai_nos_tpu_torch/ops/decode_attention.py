@@ -1,0 +1,510 @@
+"""Decode attention over a paged KV cache: two CUDA kernels for Hopper
+and their plain PyTorch versions.
+
+Port of `walkai_nos_tpu/ops/decode_attention.py` (the reference). The
+paged serving engine stores K/V in a SHARED pool of 128-row physical
+blocks per layer (`[num_blocks, kv_heads, PAGE_ROWS, head_dim]`); a
+per-slot block table maps logical cache block j of slot b to pool block
+`table[b, j]`. The decode step is memory-bound: each step re-reads every
+resident K/V byte once, and the projection weight once.
+
+Two kernels carry the decode step (sources in `csrc/`, built by
+`ops/_build.py` at first use):
+
+- `paged_attention.cu` (K1) replaces the TPU kernel `_paged_pallas`
+  (`_paged_stream_kernel` -> `_stream_fold`): streamed paged attention
+  through the block table, tail blocks never read, GQA rows served from
+  one K/V read per kv head, and optional injection of the step's fresh
+  K/V rows (what `_fused_stream_kernel` does in VMEM).
+- `qkv_rope.cu` (K2) replaces the projection half of `_fused_qkv_pallas`:
+  one launch computes `x @ w_qkv` for every slot's rows (the weight is
+  read once), adds the bias, rounds to x's dtype and applies RoPE.
+
+`fused_qkv_paged_attention` on a CUDA tensor is K2 followed by K1 with
+injection; it returns `(o, k_new, v_new)` and the CALLER scatters the
+fresh rows (`scatter_paged_rows`), as with the TPU kernel.
+
+Routing follows the tensor's device and nothing else: a CPU tensor takes
+the plain version (the tests' path), a CUDA tensor launches the kernel
+or raises. There is no environment switch and no fallback. Each wrapper
+counts its launches in `LAUNCHES`.
+
+Layouts at the public functions are the JAX package's. The one
+difference: `scatter_paged_rows` writes the pools IN PLACE (JAX returns
+new pools from a donated buffer) and returns them for convenience.
+
+Unquantized arms only: int8 pools (`k_scales`/`v_scales`) and int8
+weights (`w_scale`) raise NotImplementedError until the ROADMAP's "int8
+KV and int8 weights" item ports them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+__all__ = [
+    "LAUNCHES",
+    "MAX_KERNEL_STEPS",
+    "PAGE_ROWS",
+    "decode_attention_reference",
+    "fused_qkv_paged_attention",
+    "fused_qkv_paged_reference",
+    "gather_paged_cache",
+    "paged_decode_attention",
+    "paged_decode_attention_reference",
+    "qkv_rope_projection",
+    "qkv_rope_reference",
+    "reset_launch_counts",
+    "rope_tables",
+    "rotate",
+    "scatter_paged_rows",
+    "split_qkv",
+]
+
+_NEG_INF = -1e30
+
+# Rows per physical cache block: the paged pool's allocation quantum and
+# the kernels' streaming block (the JAX package's PAGE_ROWS).
+PAGE_ROWS = 128
+
+# Decode-path query positions per call the kernels take; wider prefill
+# chunks go through the gather + masked-attention path in models/lm.py.
+MAX_KERNEL_STEPS = 8
+
+# Launch counts per kernel: each wrapper adds one where it launches its
+# kernel, and nowhere else.
+LAUNCHES = {"paged_attention": 0, "qkv_rope": 0}
+
+_INT8_TODO = (
+    "int8 KV pools and int8 weights are not ported yet (ROADMAP: "
+    "'int8 KV and int8 weights')"
+)
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# -- plain versions -----------------------------------------------------
+
+
+def decode_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, index
+) -> torch.Tensor:
+    """Plain decode attention over a dense cache.
+
+    q: [batch, heads, head_dim] or [batch, heads, steps, head_dim];
+    k/v: [batch, kv_heads, cache_len, head_dim] with kv_heads dividing
+    heads (query head i reads kv head i // group); index: int scalar or
+    [batch] tensor. Position p is visible to query step r iff
+    p <= index + r. Scores and the PV product accumulate in f32;
+    probabilities round to v's dtype before the PV product, as in JAX."""
+    single = q.dim() == 3
+    if single:
+        q = q[:, :, None, :]
+    steps = q.shape[2]
+    if k.shape[1] != q.shape[1]:
+        rep = q.shape[1] // k.shape[1]
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum(
+        "bhsd,bhkd->bhsk", q.float(), k.float()
+    ) * scale
+    pos = torch.arange(k.shape[2], device=q.device)
+    off = torch.arange(steps, device=q.device)
+    index = torch.as_tensor(index, device=q.device)
+    if index.dim() == 0:
+        mask = (pos[None] <= (index + off)[:, None])[None, None]
+    else:
+        mask = (
+            pos[None, None] <= (index[:, None] + off[None])[..., None]
+        )[:, None]
+    logits = torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum(
+        "bhsk,bhkd->bhsd", probs.to(v.dtype).float(), v.float()
+    ).to(q.dtype)
+    return out[:, :, 0] if single else out
+
+
+def gather_paged_cache(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Dense slot-major view of a block pool: [num_blocks, kv_heads,
+    PAGE_ROWS, head_dim] through [batch, nlog] -> [batch, kv_heads,
+    nlog * PAGE_ROWS, head_dim]. A copy; reference and wide-prefill
+    use only."""
+    b, nlog = table.shape
+    _, kvh, rows, d = pool.shape
+    gathered = pool[table.long()]  # [b, nlog, kvh, rows, d]
+    return gathered.permute(0, 2, 1, 3, 4).reshape(b, kvh, nlog * rows, d)
+
+
+def paged_decode_attention_reference(
+    q, k_pool, v_pool, table, index, k_scales=None, v_scales=None,
+) -> torch.Tensor:
+    """Plain paged attention: gather each slot's blocks into a dense
+    view, then `decode_attention_reference`. Whatever unreferenced pool
+    blocks hold is masked out."""
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError(_INT8_TODO)
+    return decode_attention_reference(
+        q, gather_paged_cache(k_pool, table),
+        gather_paged_cache(v_pool, table), index,
+    )
+
+
+def scatter_paged_rows(
+    k_pool: torch.Tensor, v_pool: torch.Tensor,
+    k: torch.Tensor, v: torch.Tensor,
+    table: torch.Tensor, index: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write fresh K/V rows through the block table, IN PLACE.
+
+    k/v: [batch, kv_heads, steps, head_dim] for positions
+    index .. index+steps-1 of each slot. Rows at positions past the
+    table's capacity (nlog * PAGE_ROWS) are DROPPED, never clipped: a
+    clipped write would land in the slot's last real block and corrupt
+    committed rows. Returns the (mutated) pools.
+
+    The drop is done without a host sync (no boolean indexing): a
+    dropped row is aimed at the scratch block 0 and carries that
+    location's current value, so the write changes nothing. Only a
+    kept row whose table entry is the scratch block itself (an idle or
+    unbacked entry, garbage by construction) can race with it."""
+    kvh, page, hd = k_pool.shape[1:]
+    bsz, _, steps, _ = k.shape
+    nlog = table.shape[1]
+    pos = index.long()[:, None] + torch.arange(steps, device=k.device)
+    logical = torch.clamp(pos // page, 0, nlog - 1)
+    keep = (pos < nlog * page).reshape(-1, 1, 1)
+    phys = torch.gather(table.long(), 1, logical).reshape(-1)
+    phys = torch.where(keep.reshape(-1), phys, torch.zeros_like(phys))
+    row = (pos % page).reshape(-1)
+    for pool, new in ((k_pool, k), (v_pool, v)):
+        rows = new.permute(0, 2, 1, 3).reshape(bsz * steps, kvh, hd)
+        rows = torch.where(keep, rows.to(pool.dtype), pool[phys, :, row, :])
+        pool[phys, :, row, :] = rows
+    return k_pool, v_pool
+
+
+def rope_tables(
+    positions: torch.Tensor, head_dim: int, theta: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 cos/sin tables [*positions.shape, head_dim] in the HF
+    half-split layout (the JAX `_rope_tables` and `apply_rope` angle
+    math) for integer positions."""
+    inv_freq = 1.0 / (
+        theta ** (
+            torch.arange(
+                0, head_dim, 2, dtype=torch.float32, device=positions.device
+            ) / head_dim
+        )
+    )
+    angles = positions.float()[..., None] * inv_freq
+    cos = torch.cat([torch.cos(angles)] * 2, dim=-1)
+    sin = torch.cat([torch.sin(angles)] * 2, dim=-1)
+    return cos, sin
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """Half-split rotary from precomputed tables (pairs dimension i with
+    i + head_dim/2): f32 math, result in x's dtype."""
+    h = x.shape[-1] // 2
+    rotated = torch.cat([-x[..., h:], x[..., :h]], dim=-1)
+    return (x.float() * cos + rotated.float() * sin).to(x.dtype)
+
+
+def split_qkv(qkv, index, *, num_heads, kv_heads, rope_theta=None):
+    """Split a fused [batch, steps, (heads + 2 * kv_heads) * head_dim]
+    projection at positions index .. index+steps-1 into q [batch, heads,
+    steps, head_dim] and k, v [batch, kv_heads, steps, head_dim] ([q | k
+    | v] column blocks), rotating q and k when `rope_theta` is set."""
+    bsz, steps, dout = qkv.shape
+    hd = dout // (num_heads + 2 * kv_heads)
+    d, kd = num_heads * hd, kv_heads * hd
+    q = qkv[..., :d].reshape(bsz, steps, num_heads, hd).transpose(1, 2)
+    k = qkv[..., d:d + kd].reshape(bsz, steps, kv_heads, hd).transpose(1, 2)
+    v = qkv[..., d + kd:].reshape(bsz, steps, kv_heads, hd).transpose(1, 2)
+    if rope_theta is not None:
+        pos = index.long()[:, None] + torch.arange(steps, device=qkv.device)
+        cos, sin = rope_tables(pos, hd, rope_theta)
+        q = rotate(q, cos[:, None], sin[:, None])
+        k = rotate(k, cos[:, None], sin[:, None])
+    return q, k, v
+
+
+def qkv_rope_reference(
+    x, w_qkv, b_qkv, index, *, num_heads, kv_heads, rope_theta=None,
+):
+    """Plain version of K2, as the TPU kernel's `_project` stage
+    computes it: qkv = (x @ w) in f32 + bias in f32, rounded to x's
+    dtype, split and rotated. x: [batch, steps, d_model]; w_qkv:
+    [d_model, d_model + 2 * kv_dim]. Returns q [batch, heads, steps,
+    head_dim] and k_new, v_new [batch, kv_heads, steps, head_dim]."""
+    qkv = x.float() @ w_qkv.float()
+    if b_qkv is not None:
+        qkv = qkv + b_qkv.float()
+    q, k, v = split_qkv(
+        qkv.to(x.dtype), index, num_heads=num_heads, kv_heads=kv_heads,
+        rope_theta=rope_theta,
+    )
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def fused_qkv_paged_reference(
+    x, w_qkv, b_qkv, k_pool, v_pool, table, index,
+    *, num_heads, rope_theta=None,
+    w_scale=None, k_scales=None, v_scales=None,
+):
+    """Plain version of the fused path, the unfused composition the JAX
+    reference spells out: projection (in x's dtype) -> split/transpose
+    -> rotary -> scatter into COPIES of the pools -> gather + plain
+    paged attention. Returns (o, k_new, v_new); the caller's pools are
+    not touched."""
+    if w_scale is not None or k_scales is not None or v_scales is not None:
+        raise NotImplementedError(_INT8_TODO)
+    qkv = x @ w_qkv
+    if b_qkv is not None:
+        qkv = qkv + b_qkv
+    q, k, v = split_qkv(
+        qkv, index, num_heads=num_heads, kv_heads=k_pool.shape[1],
+        rope_theta=rope_theta,
+    )
+    kp, vp = scatter_paged_rows(
+        k_pool.clone(), v_pool.clone(), k, v, table, index
+    )
+    o = paged_decode_attention_reference(q, kp, vp, table, index)
+    return o, k, v
+
+
+# -- CUDA wrappers --------------------------------------------------------
+
+_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+_FNS: dict[str, object] = {}
+
+
+def _kernel_fn(source: str, name: str, argtypes):
+    """The C entry point `name` of kernel library `source`, typed
+    (built and loaded at its first use)."""
+    fn = _FNS.get(name)
+    if fn is None:
+        from walkai_nos_tpu_torch.ops._build import load_kernels
+
+        fn = getattr(load_kernels()[source], name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn
+
+
+def _check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {code}")
+
+
+def _suffix(t: torch.Tensor) -> str:
+    if t.dtype not in _SUFFIX:
+        raise TypeError(
+            f"the CUDA kernels take bfloat16 or float32; got {t.dtype}"
+        )
+    return _SUFFIX[t.dtype]
+
+
+def _require_cuda(*tensors) -> None:
+    for t in tensors:
+        if t is not None and t.device.type != "cuda":
+            raise ValueError(
+                "CUDA kernel inputs must all lie on the GPU; got a tensor "
+                f"on {t.device}"
+            )
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _split(units: int, cells: int, device: torch.device, quantum: int = 1):
+    """Split `units` of sequential work (cache blocks, k rows) across
+    CTAs so that `cells` independent cells fill ~2 CTAs per SM. Returns
+    (units per split, splits). A function of the shapes and the card
+    only, never of the data, so a cell's result does not depend on what
+    shares the launch."""
+    target = max(1, -(-2 * _sm_count(device.index or 0) // cells))
+    per = -(-units // min(target, units))
+    per = -(-per // quantum) * quantum
+    return per, -(-units // per)
+
+
+def _paged_attention_cuda(q, k_pool, v_pool, table, index, k_new, v_new):
+    """Launch K1 (split pass + combine). q [b, h, steps, hd];
+    k_new/v_new None or [b, kv_heads, steps, hd] fresh rows injected at
+    positions index .. index+steps-1."""
+    _require_cuda(q, k_pool, v_pool, table, index, k_new, v_new)
+    b, h, steps, hd = q.shape
+    nb, kvh, page, _ = k_pool.shape
+    if page != PAGE_ROWS or k_pool.shape[3] != hd or hd % 8 != 0:
+        raise ValueError(
+            f"pool shape {tuple(k_pool.shape)} does not match q, or "
+            f"head_dim {hd} is not a multiple of 8"
+        )
+    if h % kvh != 0 or steps > MAX_KERNEL_STEPS:
+        raise ValueError(
+            f"heads {h} must be a multiple of kv_heads {kvh} and steps "
+            f"{steps} <= {MAX_KERNEL_STEPS}"
+        )
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError("paged pools must be contiguous")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged pools must be 16-byte aligned")
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError("q and the pools must share one dtype")
+    rows = (h // kvh) * steps
+    if (k_new is None) != (v_new is None):
+        raise ValueError("k_new and v_new go together")
+    if k_new is not None:
+        k_new = k_new.to(q.dtype).contiguous()
+        v_new = v_new.to(q.dtype).contiguous()
+    q = q.contiguous()
+    table = table.to(torch.int32).contiguous()
+    index = index.to(torch.int32).contiguous()
+    nlog = table.shape[1]
+    bps, nsplit = _split(nlog, b * kvh, q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m_part = torch.empty(b, kvh, nsplit, rows, **f32)
+    l_part = torch.empty(b, kvh, nsplit, rows, **f32)
+    acc_part = torch.empty(b, kvh, nsplit, rows, hd, **f32)
+    out = torch.empty_like(q)
+    fn = _kernel_fn(
+        "paged_attention", "paged_attention_" + _suffix(q),
+        [_P] * 11 + [_I] * 8 + [ctypes.c_float, _P],
+    )
+    code = fn(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        table.data_ptr(), index.data_ptr(),
+        None if k_new is None else k_new.data_ptr(),
+        None if v_new is None else v_new.data_ptr(),
+        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+        out.data_ptr(), b, h, kvh, steps, hd, nlog, bps, nsplit,
+        hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _check(code, "paged_attention")
+    LAUNCHES["paged_attention"] += 1
+    return out
+
+
+def paged_decode_attention(
+    q, k_pool, v_pool, table, index, *, k_scales=None, v_scales=None,
+) -> torch.Tensor:
+    """Paged decode attention (K1 on a CUDA tensor, the plain version on
+    a CPU tensor). q: [batch, heads, head_dim] or [batch, heads, steps,
+    head_dim]; k/v_pool: [num_blocks, kv_heads, PAGE_ROWS, head_dim];
+    table: [batch, nlog] int physical block ids (every entry a valid
+    block; idle slots park on block 0); index: [batch] int."""
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError(_INT8_TODO)
+    if q.device.type == "cpu":
+        return paged_decode_attention_reference(
+            q, k_pool, v_pool, table, index
+        )
+    single = q.dim() == 3
+    out = _paged_attention_cuda(
+        q[:, :, None, :] if single else q, k_pool, v_pool, table, index,
+        None, None,
+    )
+    return out[:, :, 0] if single else out
+
+
+def qkv_rope_projection(
+    x, w_qkv, b_qkv, index, *, num_heads, kv_heads, rope_theta=None,
+):
+    """The decode step's QKV projection + bias + RoPE (K2 on a CUDA
+    tensor, `qkv_rope_reference` on a CPU tensor). Returns (q, k_new,
+    v_new) in the layouts of `qkv_rope_reference`."""
+    if x.device.type == "cpu":
+        return qkv_rope_reference(
+            x, w_qkv, b_qkv, index, num_heads=num_heads,
+            kv_heads=kv_heads, rope_theta=rope_theta,
+        )
+    _require_cuda(x, w_qkv, b_qkv, index)
+    bsz, steps, dm = x.shape
+    dout = w_qkv.shape[1]
+    heads = num_heads + 2 * kv_heads
+    if w_qkv.shape[0] != dm or dout % heads != 0:
+        raise ValueError(f"w_qkv shape {tuple(w_qkv.shape)} does not fit x")
+    hd = dout // heads
+    if hd % 8 != 0 or hd > 128:
+        raise ValueError(f"head_dim {hd} must be a multiple of 8 and <= 128")
+    if w_qkv.dtype != x.dtype or (
+        b_qkv is not None and b_qkv.dtype != x.dtype
+    ):
+        raise TypeError("x, w_qkv and b_qkv must share one dtype")
+    if not w_qkv.is_contiguous() or w_qkv.data_ptr() % 16:
+        raise ValueError(
+            "w_qkv must be contiguous ([d_model, dout]) and 16-byte aligned"
+        )
+    x = x.contiguous()
+    bias = None if b_qkv is None else b_qkv.contiguous()
+    dev = x.device
+    M = bsz * steps
+    if rope_theta is not None and not rope_theta > 0:
+        raise ValueError(f"rope_theta must be > 0; got {rope_theta}")
+    index = index.to(torch.int32).contiguous()
+    q = torch.empty(bsz, num_heads, steps, hd, dtype=x.dtype, device=dev)
+    k = torch.empty(bsz, kv_heads, steps, hd, dtype=x.dtype, device=dev)
+    v = torch.empty_like(k)
+    k_per, ksplit = _split(dm, heads * -(-M // 16), dev, quantum=32)
+    partial = torch.empty(ksplit, M, dout, dtype=torch.float32, device=dev)
+    fn = _kernel_fn(
+        "qkv_rope", "qkv_rope_" + _suffix(x),
+        [_P] * 4 + [ctypes.c_float] + [_P] * 4 + [_I] * 8 + [_P],
+    )
+    code = fn(
+        x.data_ptr(), w_qkv.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        index.data_ptr(), 0.0 if rope_theta is None else float(rope_theta),
+        partial.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        M, dm, num_heads, kv_heads, steps, hd, ksplit, k_per,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _check(code, "qkv_rope")
+    LAUNCHES["qkv_rope"] += 1
+    return q, k, v
+
+
+def fused_qkv_paged_attention(
+    x, w_qkv, b_qkv, k_pool, v_pool, table, index,
+    *, num_heads, rope_theta=None,
+    w_scale=None, k_scales=None, v_scales=None,
+):
+    """Fused QKV projection + rotary + paged decode attention.
+
+    x: [batch, steps <= MAX_KERNEL_STEPS, d_model]; w_qkv: [d_model,
+    d_model + 2 * kv_dim] ([q | k | v] column blocks); b_qkv: [dout] or
+    None; pools/table/index as `paged_decode_attention`. Returns (o
+    [batch, heads, steps, head_dim], k_new, v_new [batch, kv_heads,
+    steps, head_dim]): o already attends to the fresh rows, and the
+    CALLER scatters k_new/v_new into the pools. On a CUDA tensor: K2,
+    then K1 with the fresh rows injected; on a CPU tensor:
+    `fused_qkv_paged_reference`."""
+    if w_scale is not None or k_scales is not None or v_scales is not None:
+        raise NotImplementedError(_INT8_TODO)
+    if x.device.type == "cpu":
+        return fused_qkv_paged_reference(
+            x, w_qkv, b_qkv, k_pool, v_pool, table, index,
+            num_heads=num_heads, rope_theta=rope_theta,
+        )
+    q, k_new, v_new = qkv_rope_projection(
+        x, w_qkv, b_qkv, index, num_heads=num_heads,
+        kv_heads=k_pool.shape[1], rope_theta=rope_theta,
+    )
+    o = _paged_attention_cuda(q, k_pool, v_pool, table, index, k_new, v_new)
+    return o, k_new, v_new
