@@ -7,7 +7,7 @@ the CUDA toolkit (`nvcc`). It:
 
 1. builds the port's kernels from `walkai_nos_tpu_torch/csrc/` (nvcc,
    sm_90a) and prints the build seconds and the ptxas resource report;
-2. holds each kernel (K1 paged attention, K2 QKV projection + RoPE) and
+2. holds each LM kernel (K1 paged attention, K2 QKV projection + RoPE) and
    the fused composition against its plain PyTorch version at the
    serving shapes of TinyLlama-1.1B (bf16, 32 heads, 4 kv heads,
    head_dim 64, 8 slots, steps 1 and 8, shuffled tables, ragged indices
@@ -22,7 +22,25 @@ the CUDA toolkit (`nvcc`). It:
    a fresh engine gives the same tokens;
 4. serves 2 requests through the unfused route (`fused_qkv=False`, 4
    layers), which runs K1 without fresh-row injection and no K2;
-5. prints the card's name and power limit, one JSON line with every
+5. holds K3 (packed ViT attention), K4 (flash forward + lse), K5 (dq)
+   and K6 (dk/dv) against their plain versions at the ViT's shapes (batch
+   32, 296 tokens, 6 heads of 64) in bf16 and f32, plus a causal sq != sk
+   shape and a kv_len < sk shape; checks that two backward runs give
+   bitwise-identical gradients; times kernel, plain version and SDPA;
+6. serves 64 requests of 1-8 images (sizes from --seed, 8 client
+   threads) through the ViT micro-batcher at YOLOS-small width (12
+   layers, random weights cast to bf16 once), checks every request, each
+   bucket's output against the plain attention path on the same input
+   and 12 K3 launches per batch, and prints fenced images/s, p50/p99
+   latency, padded images, device starvation, the calibrated ceiling and
+   the device-busy share of a profiled window;
+7. trains YOLOS-small (f32 masters, bf16 compute, batch 32): the step-1
+   gradient of every parameter through K3-K6 against the plain
+   attention's, 20 steps through `fit` on a repeated synthetic batch
+   with a checkpoint at step 10 (the loss must fall), a resume from step
+   10 that must replay the same losses, 12 launches per step of each of
+   K3-K6, then step time, images/s and a profiled window;
+8. prints the card's name and power limit, one JSON line with every
    kernel's numbers, and as the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -34,10 +52,14 @@ exits non-zero before printing any result. Long outputs also go to
 from __future__ import annotations
 
 import argparse
+import contextlib
+import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -97,6 +119,22 @@ def _host_timed(fn, iters: int) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
+def _err(got, want, dtype):
+    """(max |got - want|, worst per-row error over its tolerance): row i
+    of each output (a slot, an image, a (batch) entry) is held to REL *
+    max |want row i| + ABS."""
+    rel, floor = TOL[dtype]
+    worst, ratio = 0.0, 0.0
+    for g, w in zip(got, want):
+        d = (g.float() - w.float()).abs().flatten(1).amax(1)
+        # A NaN on either side is an infinite error (max() would skip it).
+        d = torch.where(torch.isnan(d), torch.inf, d)
+        tol = rel * w.float().abs().flatten(1).amax(1) + floor
+        worst = max(worst, float(d.max()))
+        ratio = max(ratio, float((d / tol).max()))
+    return worst, ratio
+
+
 def _bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = flops / BF16_FLOPS * 1e3
@@ -127,16 +165,7 @@ def kernel_phase(da, seed: int) -> tuple[list, list]:
     ws = [rnd(dm, dout, std=0.02) for _ in range(ROTATE)]
     checks, rows = [], []
 
-    def err(got, want, dtype):
-        """(max |got - want|, worst per-slot error over its tolerance)."""
-        rel, floor = TOL[dtype]
-        worst, ratio = 0.0, 0.0
-        for g, w in zip(got, want):
-            d = (g.float() - w.float()).abs().flatten(1).amax(1)
-            tol = rel * w.float().abs().flatten(1).amax(1) + floor
-            worst = max(worst, float(d.max()))
-            ratio = max(ratio, float((d / tol).max()))
-        return worst, ratio
+    err = _err
 
     f32 = {"w": ws[0].float()}
     f32["kp"], f32["vp"] = (p.float() for p in pools[0])
@@ -384,17 +413,53 @@ def profile_window(engine, prompts, new: int) -> dict:
         wall = time.monotonic() - t0
     if any(len(out[r]) != new for r in rids):
         _fail("profiled window: a request came back short")
+    return _profile_summary(prof, wall, "profile.txt")
+
+
+def _device_rows(prof) -> list:
+    """(device us, calls, name) of each device-side event kind (kernels,
+    copies, sets) of a profile, largest first. Host ops, autograd nodes
+    and annotated ranges (an optimizer step) carry the device time of the
+    kernels inside them too, and are left out."""
+    from torch.autograd import DeviceType
+
     rows = []
     for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
+            continue
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "cuda_time_total", 0.0)
-        if dev_us > 0 and ev.key and not ev.key.startswith(("aten::", "cuda")):
+        if dev_us > 0 and ev.key:
             rows.append((dev_us, ev.count, ev.key))
-    rows.sort(reverse=True)
+    return sorted(rows, reverse=True)
+
+
+def _profiled_ms(fn, iters: int, warm: int = 2) -> float:
+    """Mean device milliseconds per call, summed from the kernels that
+    `iters` eager calls ran under torch.profiler: for work that a CUDA
+    graph cannot capture (an autograd backward of a graph made outside
+    the capture) and whose eager loop would time the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(warm):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    return sum(r[0] for r in _device_rows(prof)) / 1e3 / iters
+
+
+def _profile_summary(prof, wall: float, table_name: str) -> dict:
+    """Device-busy share of a profiled window (device kernel time over
+    wall time) and the kernels that took the most device time; the full
+    table goes to chiprun_out/<table_name>."""
+    rows = _device_rows(prof)
     busy = sum(r[0] for r in rows) / 1e6
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "profile.txt"), "w") as f:
+    with open(os.path.join("chiprun_out", table_name), "w") as f:
         f.write(prof.key_averages().table(sort_by="device_time_total", row_limit=40))
     return {
         "wall_s": wall, "device_kernel_s": busy,
@@ -428,6 +493,380 @@ def unfused_phase(ContinuousBatcher, DecoderLM, da, cfg, seed: int) -> dict:
     return {"requests": len(rids), "launches": launches}
 
 
+# The ViT detector at YOLOS-small width: batch 32, 196 patches + 100
+# detection tokens, 6 heads of 64.
+VIT_B, VIT_S, VIT_H, VIT_D = 32, 296, 6, 64
+# Gradients of the training phase's check: per parameter tensor, max
+# |kernel path - plain path| <= GRAD_REL * max |plain path|. The two paths
+# run the same bf16 model and differ only inside attention (the kernels
+# keep probabilities in f32, the plain version rounds them to bf16), and
+# that difference passes through 12 layers of bf16 backward.
+GRAD_REL = 5e-2
+
+
+@contextlib.contextmanager
+def _plain_vit_attention(vit_mod, fa):
+    """Runs the ViT's attention through its plain PyTorch version
+    (`packed_reference`, differentiable by autograd) inside the block:
+    the reference the checks hold the kernel path against."""
+    kernel_path = vit_mod.flash_attention_packed
+    vit_mod.flash_attention_packed = fa.packed_reference
+    try:
+        yield
+    finally:
+        vit_mod.flash_attention_packed = kernel_path
+
+
+def attention_kernel_phase(fa, seed: int) -> tuple[list, list]:
+    """K3-K6 against their plain versions at the ViT's shapes in bf16 and
+    f32, plus a causal sq != sk shape and a kv_len < sk shape; bitwise
+    repeatability of the backward; timings of kernel, plain version and
+    SDPA at the ViT's shape in bf16. Returns (checks, timing rows)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+    b, s, h, d = VIT_B, VIT_S, VIT_H, VIT_D
+    bf = torch.bfloat16
+    checks, rows = [], []
+
+    def rnd(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def check(kernel, case, dtype, got, want, rule=None):
+        e, ratio = _err(got, want, rule or dtype)
+        checks.append({
+            "kernel": kernel, "case": case, "dtype": str(dtype).split(".")[-1],
+            "max_abs_err": e, "err_over_tol": ratio,
+            "tol": "%g * max|plain| per row + %g" % TOL[rule or dtype],
+        })
+        if not ratio <= 1.0:
+            _fail(f"{kernel} {case} {dtype}: max err {e}, {ratio:.3g}x its tolerance")
+
+    # (case, batch, sq, sk, causal, kv_len)
+    cases = (
+        ("vit", b, s, s, False, s),
+        ("causal_sq_lt_sk", 4, 200, s, True, s),
+        ("kv_len_lt_sk", 4, s, s, False, 250),
+    )
+    for dtype in (bf, torch.float32):
+        qkv = rnd(b, s, 3 * h * d, dtype=dtype)
+        check("packed_attention", "vit", dtype,
+              [fa._packed_cuda(qkv, h)], [fa.packed_reference(qkv, h)])
+        for case, bb, sq, sk, causal, kv_len in cases:
+            q, k, v = rnd(bb, h, sq, d, dtype=dtype), rnd(bb, h, sk, d, dtype=dtype), rnd(bb, h, sk, d, dtype=dtype)
+            g = rnd(bb, h, sq, d, dtype=dtype)
+            out, lse = fa._flash_fwd_cuda(q, k, v, causal, kv_len)
+            ro, rl = fa.flash_reference(q, k, v, causal=causal, kv_len=kv_len)
+            check("flash_fwd", case, dtype, [out], [ro])
+            # lse is f32 on both sides, from the same inputs.
+            check("flash_fwd", case + "/lse", dtype, [lse], [rl], rule=torch.float32)
+            g_lse = rnd(bb, h, sq, dtype=torch.float32) if causal else None
+            dcap = fa._row_term(g, ro, g_lse)
+            dq = fa._flash_dq_cuda(q, k, v, g, rl, dcap, causal, kv_len)
+            dk, dv = fa._flash_dkv_cuda(q, k, v, g, rl, dcap, causal, kv_len)
+            wq, wk, wv = fa.flash_backward_reference(
+                q, k, v, ro, rl, g, causal=causal, kv_len=kv_len, g_lse=g_lse
+            )
+            check("flash_dq", case, dtype, [dq], [wq])
+            check("flash_dkv", case, dtype, [dk, dv], [wk, wv])
+    torch.cuda.synchronize()
+
+    # Bitwise repeatability of the backward (no atomics: a fixed order).
+    q, k, v, g = (rnd(b, h, s, d) for _ in range(4))
+    out, lse = fa._flash_fwd_cuda(q, k, v, False, s)
+    runs = [fa._flash_bwd_cuda(q, k, v, out, lse, g, None, False, s) for _ in range(2)]
+    if not all(torch.equal(x, y) for x, y in zip(*runs)):
+        _fail("two backward runs gave different gradients")
+    checks.append({"kernel": "flash_dq+flash_dkv", "case": "vit", "dtype": "bfloat16",
+                   "bitwise_repeatable": True})
+
+    # Timing at the ViT's shape, bf16, inputs cycled over ROTATE copies.
+    qkvs = [rnd(b, s, 3 * h * d) for _ in range(ROTATE)]
+    packed_views = [fa.packed_unpack(x, h) for x in qkvs]
+    qkv4 = [tuple(t.contiguous() for t in views) for views in packed_views]
+    gs = [rnd(b, h, s, d) for _ in range(ROTATE)]
+    fwd = [fa._flash_fwd_cuda(*t, False, s) for t in qkv4]
+    dcaps = [fa._row_term(g_, o, None) for g_, (o, _) in zip(gs, fwd)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_graphs = []
+    for t in qkv4:
+        leaves = [x.detach().clone().requires_grad_(True) for x in t]
+        lib_graphs.append((leaves, sdpa(*leaves)))
+    torch.cuda.synchronize()
+
+    def k3(i):
+        fa._packed_cuda(qkvs[i % ROTATE], h)
+
+    def k3_plain(i):
+        fa.packed_reference(qkvs[i % ROTATE], h)
+
+    def k3_lib(i):
+        sdpa(*packed_views[i % ROTATE]).transpose(1, 2).reshape(b, s, h * d)
+
+    def k4(i):
+        fa._flash_fwd_cuda(*qkv4[i % ROTATE], False, s)
+
+    def k4_plain(i):
+        fa.flash_reference(*qkv4[i % ROTATE])
+
+    def k4_lib(i):
+        sdpa(*qkv4[i % ROTATE])
+
+    def k5(i):
+        j = i % ROTATE
+        fa._flash_dq_cuda(*qkv4[j], gs[j], fwd[j][1], dcaps[j], False, s)
+
+    def k6(i):
+        j = i % ROTATE
+        fa._flash_dkv_cuda(*qkv4[j], gs[j], fwd[j][1], dcaps[j], False, s)
+
+    def bwd_plain(i):
+        j = i % ROTATE
+        fa.flash_backward_reference(*qkv4[j], fwd[j][0], fwd[j][1], gs[j])
+
+    def bwd_lib(i):
+        j = i % ROTATE
+        leaves, o = lib_graphs[j]
+        torch.autograd.grad(o, leaves, gs[j], retain_graph=True)
+
+    bhsd = b * h * s * d * 2  # one bf16 [b, h, s, d] tensor
+    rows_f32 = b * h * s * 4  # one f32 [b, h, s] tensor
+    pairs = b * h * s * s * d
+    bwd_plain_ms = _timed(bwd_plain, 3)
+    bwd_lib_ms = _profiled_ms(bwd_lib, 10)
+    for name, fn, plain_ms, lib_ms, nbytes, flops in (
+        ("packed_attention", k3, _timed(k3_plain, 3), _timed(k3_lib, 10),
+         b * s * 3 * h * d * 2 + b * s * h * d * 2, 4.0 * pairs),
+        ("flash_fwd", k4, _timed(k4_plain, 3), _timed(k4_lib, 10),
+         4 * bhsd + rows_f32, 4.0 * pairs),
+        ("flash_dq", k5, bwd_plain_ms, bwd_lib_ms,
+         5 * bhsd + 2 * rows_f32, 6.0 * pairs),
+        ("flash_dkv", k6, bwd_plain_ms, bwd_lib_ms,
+         6 * bhsd + 2 * rows_f32, 8.0 * pairs),
+    ):
+        bound_ms, bound_by = _bound(nbytes, flops)
+        rows.append({
+            "kernel": name, "shape": f"b{b} s{s} h{h} d{d} bf16",
+            "ms": _timed(fn, 10), "plain_ms": plain_ms, "library_ms": lib_ms,
+            "host_call_ms": _host_timed(fn, 20),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "flops": flops,
+        })
+    del qkvs, packed_views, qkv4, gs, fwd, dcaps, lib_graphs
+    torch.cuda.empty_cache()
+    return checks, rows
+
+
+def vit_serving_phase(vit_mod, vs, fa, seed: int) -> dict:
+    """VIT_SMALL with bf16 weights cast once, served through the
+    micro-batcher (max_batch 32, window 2 ms, max_inflight 8) to 8
+    closed-loop client threads, 64 requests of 1-8 images."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = vit_mod.VIT_SMALL
+    model = vit_mod.ViTDetector(cfg, device="cuda", seed=seed)
+    server = vs.ViTServer(cfg, model, max_batch=32, window_ms=2.0,
+                          max_inflight=8, seed=seed)
+    del model
+    for bucket in (1, 2, 4, 8, 16, 32):  # first calls allocate: warm them
+        server.infer(server.model, server.images_of(bucket))
+    torch.cuda.synchronize()
+    sizes = [int(n) for n in np.random.default_rng(seed).integers(1, 9, 64)]
+    clients = 8
+
+    def run(chunks):
+        reqs, lock = [], threading.Lock()
+
+        def client(chunk):
+            for n in chunk:
+                r = server.submit(n)
+                with lock:
+                    reqs.append(r)
+                if not r.done.wait(timeout=120):
+                    return
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in chunks]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.monotonic() - t0
+        if any(t.is_alive() for t in threads) or not all(r.done.is_set() for r in reqs):
+            _fail("ViT serving: a request was not answered")
+        return reqs, wall
+
+    chunks = [sizes[i::clients] for i in range(clients)]
+    server.start()
+    try:
+        before = server.stats.snapshot()
+        fa.reset_launch_counts()
+        reqs, wall = run(chunks)
+        launches = dict(fa.LAUNCHES)
+        snap = server.stats.snapshot()
+        # The same request mix again, under the profiler.
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, pwall = run(chunks)
+            torch.cuda.synchronize()
+    finally:
+        server.close()
+    if snap["requests"] != len(sizes) or snap["images"] != sum(sizes):
+        _fail(f"ViT serving counted {snap}")
+    if launches["packed_attention"] != cfg.num_layers * snap["batches"]:
+        _fail(f"ViT serving: {launches} for {snap['batches']} batches")
+    if any(launches[k] for k in ("flash_fwd", "flash_dq", "flash_dkv")):
+        _fail(f"ViT serving launched backward kernels: {launches}")
+    profile_summary = _profile_summary(prof, pwall, "vit_serving_profile.txt")
+
+    # Every bucket's served output against the plain path on its input.
+    worst_err, worst_ratio = 0.0, 0.0
+    with _plain_vit_attention(vit_mod, fa), torch.inference_mode():
+        for bucket, out in sorted(server.last_outputs.items()):
+            want = server.model(server.images_of(bucket))
+            for key in ("logits", "boxes"):
+                if not torch.isfinite(out[key]).all():
+                    _fail(f"ViT serving: non-finite {key} at bucket {bucket}")
+            e, ratio = _err([out["logits"], out["boxes"]],
+                            [want["logits"], want["boxes"]], torch.bfloat16)
+            worst_err, worst_ratio = max(worst_err, e), max(worst_ratio, ratio)
+    if not worst_ratio <= 1.0:
+        _fail(f"ViT serving: kernel path vs plain path {worst_err}, {worst_ratio:.3g}x tol")
+    rtt, ceiling = vs.calibrate(server.infer, server.model, server.images_of(32),
+                                window_s=1.0)
+    lat = sorted(r.elapsed for r in reqs)
+    images_per_s = snap["images"] / wall
+    return {
+        "model": "YOLOS-small widths (VIT_SMALL), random weights cast to bf16 once",
+        "requests": snap["requests"], "images": snap["images"],
+        "batches": snap["batches"], "padded_images": snap["padded_images"],
+        "buckets_checked": sorted(server.last_outputs),
+        "max_abs_err_vs_plain": worst_err, "err_over_tol": worst_ratio,
+        "wall_s": wall, "fenced_images_per_s": images_per_s,
+        "latency_p50_s": lat[len(lat) // 2],
+        "latency_p99_s": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        # Both over the served run only (the counters start at server
+        # construction, before the warm-up).
+        "device_starved_s": snap["device_starved_s"] - before["device_starved_s"],
+        "dispatcher_idle_s": snap["dispatcher_idle_s"] - before["dispatcher_idle_s"],
+        "launches": launches,
+        "fence_rtt_s": rtt, "ceiling_images_per_s": ceiling,
+        "utilization_of_ceiling": images_per_s / ceiling,
+        "profile": profile_summary,
+    }
+
+
+def vit_training_phase(vit_mod, train_mod, trainer_mod, data_mod, fa, seed: int) -> dict:
+    """VIT_SMALL training (f32 masters, bf16 compute), batch 32: the
+    step-1 gradients through K3-K6 against the plain attention's, 20
+    steps through `fit` on one repeated synthetic batch with a checkpoint
+    at step 10, a resume from step 10 that must replay the losses, and
+    the launch counts."""
+    cfg = vit_mod.VIT_SMALL
+    b = VIT_B
+    rng = np.random.default_rng(seed + 2)
+    labels = rng.integers(0, cfg.num_classes, (b, cfg.num_det_tokens)).astype(np.int32)
+    labels[:, ::2] = cfg.num_classes - 1  # half the slots: no object
+    batch = {
+        "images": rng.standard_normal((b, cfg.image_size, cfg.image_size, 3)).astype(np.float32),
+        "labels": labels,
+        "boxes": rng.random((b, cfg.num_det_tokens, 4)).astype(np.float32),
+    }
+    state = train_mod.init_train_state(cfg, seed=seed)
+    model = state.params
+    dev_batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss = train_mod.detection_loss(model(dev_batch["images"]), dev_batch,
+                                        num_classes=cfg.num_classes)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+    loss_k, g_kernel = grads()
+    with _plain_vit_attention(vit_mod, fa):
+        loss_p, g_plain = grads()
+    model.zero_grad(set_to_none=True)
+    worst, worst_name = 0.0, ""
+    for name, gp in g_plain.items():
+        gk = g_kernel[name]
+        if not torch.isfinite(gk).all():
+            _fail(f"ViT training: non-finite gradient of {name}")
+        ratio = float((gk - gp).abs().max()) / (GRAD_REL * float(gp.abs().max()) + 1e-12)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    if not worst <= 1.0:
+        _fail(f"ViT training: gradient of {worst_name} is {worst:.3g}x its tolerance")
+    del g_kernel, g_plain
+
+    step_fn = train_mod.make_train_step(cfg)
+    work = os.path.join("chip_smoke_work", "vit_ckpt")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        fa.reset_launch_counts()
+        first = trainer_mod.fit(
+            state, step_fn, data_mod.prefetch_to_device(itertools.repeat(batch, 20)),
+            num_steps=20, checkpoint_dir=work, checkpoint_every=10, log_every=1,
+        )
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        losses = first.losses
+        if first.steps_run != 20 or len(losses) != 20 or not np.all(np.isfinite(losses)):
+            _fail(f"ViT training: {first.steps_run} steps, losses {losses}")
+        for name, n in launches.items():
+            if n != cfg.num_layers * 20:
+                _fail(f"ViT training: {name} launched {n} times in 20 steps")
+        if not losses[-1] < losses[0]:
+            _fail(f"ViT training: the loss did not fall on a repeated batch: {losses}")
+        # Resume from the step-10 checkpoint on a template from another seed.
+        shutil.rmtree(os.path.join(work, "20"))
+        template = train_mod.init_train_state(cfg, seed=seed + 1)
+        second = trainer_mod.fit(
+            template, step_fn, data_mod.prefetch_to_device(itertools.repeat(batch, 10)),
+            num_steps=10, checkpoint_dir=work, checkpoint_every=10, log_every=1,
+        )
+        if second.resumed_from != 10 or second.state.step != 20:
+            _fail(f"ViT training: resumed from {second.resumed_from} to {second.state.step}")
+        replay = np.asarray(second.losses)
+        rel = float(np.max(np.abs(replay - losses[10:]) / np.abs(losses[10:])))
+        if not rel <= 1e-3:
+            _fail(f"ViT training: the resumed losses differ by {rel:.3g} relative")
+        bitwise = bool(np.array_equal(replay, np.asarray(losses[10:])))
+        del template, second
+    finally:
+        shutil.rmtree("chip_smoke_work", ignore_errors=True)
+
+    # Throughput: 10 more steps, no checkpoint, one loss sync at the end.
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    timed = trainer_mod.fit(
+        state, step_fn, data_mod.prefetch_to_device(itertools.repeat(batch, 10)),
+        num_steps=10, log_every=0,
+    )
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        trainer_mod.fit(
+            state, step_fn, data_mod.prefetch_to_device(itertools.repeat(batch, 3)),
+            num_steps=3, log_every=0,
+        )
+        torch.cuda.synchronize()
+        pwall = time.monotonic() - t0
+    return {
+        "model": "YOLOS-small widths (VIT_SMALL), f32 masters, bf16 compute",
+        "batch": b, "step1_loss_kernel": loss_k, "step1_loss_plain": loss_p,
+        "grad_worst_over_tol": worst, "grad_worst_param": worst_name,
+        "grad_tol": f"{GRAD_REL} * max|plain grad| per parameter tensor",
+        "losses": losses, "launches_20_steps": launches,
+        "resumed_from": 10, "resume_max_rel_diff": rel, "resume_bitwise": bitwise,
+        "step_ms": wall / timed.steps_run * 1e3,
+        "images_per_s": b * timed.steps_run / wall,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "profile_3_steps": _profile_summary(prof, pwall, "vit_training_profile.txt"),
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -438,8 +877,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from walkai_nos_tpu_torch.models.lm import DecoderLM, LMConfig
+    from walkai_nos_tpu_torch.models import data as data_mod
+    from walkai_nos_tpu_torch.models import train as train_mod
+    from walkai_nos_tpu_torch.models import trainer as trainer_mod
+    from walkai_nos_tpu_torch.models import vit as vit_mod
+    from walkai_nos_tpu_torch.models import vit_serving
     from walkai_nos_tpu_torch.models.serve import ContinuousBatcher
     from walkai_nos_tpu_torch.ops import _build
+    from walkai_nos_tpu_torch.ops import attention as fa
     from walkai_nos_tpu_torch.ops import decode_attention as da
 
     smi = subprocess.run(
@@ -471,6 +916,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     unfused = unfused_phase(ContinuousBatcher, DecoderLM, da, cfg, args.seed)
     print(json.dumps({"unfused": unfused}), flush=True)
+    torch.cuda.empty_cache()
+
+    vchecks, vrows = attention_kernel_phase(fa, args.seed)
+    for c in vchecks:
+        print(json.dumps({"check": c}), flush=True)
+    for r in vrows:
+        print(json.dumps({"timing": r}), flush=True)
+    vit_serve = vit_serving_phase(vit_mod, vit_serving, fa, args.seed)
+    print(json.dumps({"vit_serving": vit_serve}), flush=True)
+    torch.cuda.empty_cache()
+    vit_train = vit_training_phase(vit_mod, train_mod, trainer_mod, data_mod, fa, args.seed)
+    print(json.dumps({"vit_training": vit_train}), flush=True)
 
     src = "walkai_nos_tpu_torch/csrc/"
     replaces = {
@@ -493,11 +950,34 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+    vit_src = {
+        "packed_attention": ("flash_attention.cu", "walkai_nos_tpu/ops/attention.py:559",
+                             vit_serve["launches"]["packed_attention"]),
+        "flash_fwd": ("flash_attention.cu", "walkai_nos_tpu/ops/attention.py:648",
+                      vit_train["launches_20_steps"]["flash_fwd"]),
+        "flash_dq": ("flash_attention_bwd.cu", "walkai_nos_tpu/ops/attention.py:212",
+                     vit_train["launches_20_steps"]["flash_dq"]),
+        "flash_dkv": ("flash_attention_bwd.cu", "walkai_nos_tpu/ops/attention.py:269",
+                      vit_train["launches_20_steps"]["flash_dkv"]),
+    }
+    for name, (source, replaces, launches) in vit_src.items():
+        t = next(r for r in vrows if r["kernel"] == name)
+        err = max(
+            c["max_abs_err"] for c in vchecks
+            if c["kernel"] == name and c["dtype"] == "bfloat16" and "max_abs_err" in c
+        )
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{src}{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({
-            "card": smi, "checks": checks, "timing": rows, "serving": serve,
-            "unfused": unfused, "kernels": kernels,
+            "card": smi, "checks": checks + vchecks, "timing": rows + vrows,
+            "serving": serve, "unfused": unfused, "vit_serving": vit_serve,
+            "vit_training": vit_train, "kernels": kernels,
         }, f, indent=1)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

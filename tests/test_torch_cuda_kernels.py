@@ -13,6 +13,7 @@ rounds probabilities to bf16, the kernel keeps them in f32): a few bf16
 ulps, 3e-2 on O(1) values.
 """
 
+import copy
 import dataclasses
 
 import pytest
@@ -198,3 +199,165 @@ def test_decoder_fused_route_matches_unfused(cuda):
     torch.testing.assert_close(out[0][0], out[1][0], atol=1e-4, rtol=1e-4)
     for a, b in zip(out[0][1].k, out[1][1].k):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# -- K3-K6: full-sequence attention ------------------------------------------
+
+from walkai_nos_tpu_torch.ops import attention as fa  # noqa: E402
+
+# Per-tensor rule: max |kernel - plain| <= REL * max |plain| + ABS (f32:
+# summation order only; bf16: outputs rounded to bf16 at other points).
+REL_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 4e-3)}
+
+# (b, h, sq, sk, d, causal, kv_len)
+ATTN_CASES = {
+    "vit": (2, 6, 296, 296, 64, False, 296),
+    "causal": (2, 3, 200, 200, 64, True, 200),
+    "causal_sq_lt_sk": (1, 2, 100, 250, 64, True, 250),
+    "causal_sq_gt_sk": (1, 2, 150, 70, 64, True, 70),
+    "kv_tail": (2, 2, 130, 192, 64, False, 150),
+    "d128": (1, 2, 96, 160, 128, True, 160),
+    "d40": (1, 2, 77, 77, 40, False, 77),
+}
+
+
+def _close_rel(got, want, dtype, what=""):
+    rel, floor = REL_TOL[dtype]
+    err = float((got.detach().float() - want.detach().float()).abs().max())
+    tol = rel * float(want.detach().float().abs().max()) + floor
+    assert err <= tol, (what, err, tol)
+
+
+def _attn_case(dev, dtype, name, seed=0):
+    b, h, sq, sk, d, causal, kv_len = ATTN_CASES[name]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    return dict(q=rnd(b, h, sq, d), k=rnd(b, h, sk, d), v=rnd(b, h, sk, d),
+                g=rnd(b, h, sq, d), g_lse=rnd(b, h, sq).float(),
+                causal=causal, kv_len=kv_len)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(ATTN_CASES))
+def test_flash_forward_matches_plain(cuda, dtype, name):
+    c = _attn_case(cuda, dtype, name)
+    before = fa.LAUNCHES["flash_fwd"]
+    out, lse = fa._flash_fwd_cuda(c["q"], c["k"], c["v"], c["causal"], c["kv_len"])
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd"] == before + 1
+    want, want_lse = fa.flash_reference(
+        c["q"], c["k"], c["v"], causal=c["causal"], kv_len=c["kv_len"]
+    )
+    _close_rel(out, want, dtype, "out")
+    # lse is f32 from inputs of the case's dtype on both sides.
+    _close_rel(lse, want_lse, torch.float32, "lse")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(ATTN_CASES))
+def test_flash_backward_matches_plain(cuda, dtype, name):
+    c = _attn_case(cuda, dtype, name, seed=1)
+    out, lse = fa.flash_reference(
+        c["q"], c["k"], c["v"], causal=c["causal"], kv_len=c["kv_len"]
+    )
+    args = (c["q"], c["k"], c["v"], out, lse, c["g"])
+    got = fa._flash_bwd_cuda(*args, c["g_lse"], c["causal"], c["kv_len"])
+    want = fa.flash_backward_reference(
+        *args, causal=c["causal"], kv_len=c["kv_len"], g_lse=c["g_lse"]
+    )
+    for a, w, n in zip(got, want, ("dq", "dk", "dv")):
+        assert torch.isfinite(a.float()).all(), n
+        _close_rel(a, w, dtype, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_forward_and_grad_match_plain(cuda, dtype):
+    """K3 on the packed tensor as it lies (a column slice of a wider
+    buffer, so rows are strided), and the packed backward (K4 recompute,
+    K5 + K6 into the packed gradient) against the plain versions."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    b, s, h, d = 3, 296, 6, 64
+    wide = torch.randn(b, s, 3 * h * d + 16, generator=gen, device=cuda).to(dtype)
+    qkv = wide[..., : 3 * h * d]
+    fa.reset_launch_counts()
+    out = fa._packed_cuda(qkv, h)
+    _close_rel(out, fa.packed_reference(qkv, h), dtype, "out")
+    g = torch.randn(b, s, h * d, generator=gen, device=cuda).to(dtype)
+    x = qkv.detach().clone().requires_grad_(True)
+    fa.flash_attention_packed(x, h).backward(g)
+    assert fa.LAUNCHES == {
+        "packed_attention": 2, "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1,
+    }
+    y = qkv.detach().cpu().float().requires_grad_(True)
+    fa.flash_attention_packed(y, h).backward(g.cpu().float())
+    _close_rel(x.grad, y.grad.to(cuda), dtype, "dqkv")
+
+
+@pytest.mark.cuda
+def test_backward_is_bitwise_repeatable(cuda):
+    c = _attn_case(cuda, torch.bfloat16, "vit", seed=3)
+    out, lse = fa._flash_fwd_cuda(c["q"], c["k"], c["v"], False, c["kv_len"])
+    runs = [
+        fa._flash_bwd_cuda(c["q"], c["k"], c["v"], out, lse, c["g"], None,
+                           False, c["kv_len"])
+        for _ in range(2)
+    ]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_head_dim_above_128_raises(cuda):
+    q = torch.zeros(1, 1, 8, 136, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 136"):
+        fa.flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_public_functions_grads_match_plain(cuda, causal):
+    """flash_attention_with_lse through autograd on the card (K4, then
+    K5 + K6 with the lse cotangent) against the same function on the CPU
+    (the plain versions), in f32."""
+    c = _attn_case(cuda, torch.float32, "causal_sq_lt_sk" if causal else "kv_tail", seed=4)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        q, k, v = (c[n].to(dev).detach().requires_grad_(True) for n in "qkv")
+        if causal:
+            out, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+            loss = (out * c["g"].to(dev)).sum() + (lse * c["g_lse"].to(dev)).sum()
+        else:
+            out = fa.flash_attention(q, k, v, kv_len=c["kv_len"])
+            loss = (out * c["g"].to(dev)).sum()
+        loss.backward()
+        grads.append([t.grad for t in (q, k, v)])
+    for a, w, n in zip(grads[0], grads[1], ("dq", "dk", "dv")):
+        _close_rel(a, w.to(cuda), torch.float32, n)
+
+
+@pytest.mark.cuda
+def test_vit_kernel_path_matches_plain_path(cuda):
+    """ViTDetector on the card (K3 forward, K4-K6 backward) against the
+    same parameters and images on the CPU (plain attention), in f32:
+    outputs and every parameter's gradient."""
+    from walkai_nos_tpu_torch.models.vit import VIT_TINY, ViTDetector
+
+    cfg = dataclasses.replace(VIT_TINY, dtype="float32")
+    images = torch.randn(3, 64, 64, 3, generator=torch.Generator().manual_seed(5))
+    plain = ViTDetector(cfg, device="cpu", seed=3)
+    results = []
+    for dev, model in ((cuda, copy.deepcopy(plain).to(cuda)), (torch.device("cpu"), plain)):
+        out = model(images.to(dev))
+        (out["logits"].square().sum() + out["boxes"].sum()).backward()
+        results.append((out, {n: p.grad for n, p in model.named_parameters()}))
+    (out_k, g_k), (out_p, g_p) = results
+    for key in ("logits", "boxes"):
+        _close_rel(out_k[key], out_p[key].to(cuda), torch.float32, key)
+    for name, g in g_p.items():
+        _close_rel(g_k[name], g.to(cuda), torch.float32, name)

@@ -35,6 +35,10 @@ def _port_modules():
 def test_port_imports_no_jax():
     mods = _port_modules()
     assert "walkai_nos_tpu_torch.ops.decode_attention" in mods
+    for mod in ("ops.attention", "models.vit", "models.train", "models.trainer",
+                "models.checkpoint", "models.data", "models.vit_serving",
+                "utils.flops"):
+        assert f"walkai_nos_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -72,14 +76,29 @@ def _no_gpu():
 def test_default_device_is_cuda_and_refuses_without_gpu():
     from walkai_nos_tpu_torch.device import resolve_device
     from walkai_nos_tpu_torch.models.lm import LM_TINY, DecoderLM
+    from walkai_nos_tpu_torch.models.data import prefetch_to_device
     from walkai_nos_tpu_torch.models.serve import ContinuousBatcher
+    from walkai_nos_tpu_torch.models.train import (
+        init_train_state,
+        make_infer_step,
+        make_train_step,
+    )
+    from walkai_nos_tpu_torch.models.vit import VIT_TINY, ViTDetector
+    from walkai_nos_tpu_torch.models.vit_serving import ViTServer
 
     _no_gpu()
     assert resolve_device("cpu") == torch.device("cpu")
+    cpu_vit = ViTDetector(VIT_TINY, device="cpu")
     for build in (
         lambda: resolve_device(None),
         lambda: DecoderLM(LM_TINY),
         lambda: ContinuousBatcher(LM_TINY, {}, slots=1, cache_len=128),
+        lambda: ViTDetector(VIT_TINY),
+        lambda: init_train_state(VIT_TINY),
+        lambda: make_train_step(VIT_TINY),
+        lambda: make_infer_step(VIT_TINY),
+        lambda: ViTServer(VIT_TINY, cpu_vit),
+        lambda: prefetch_to_device(iter([])),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()

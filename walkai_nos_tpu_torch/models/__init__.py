@@ -1,2 +1,3 @@
-"""The serving path's models: the decoder LM, its sampling, the paged
-continuous batcher and its host-side block books."""
+"""The port's models: the decoder LM, its sampling, the paged continuous
+batcher and its host-side block books; the ViT detector, its
+micro-batcher and its training loop."""

@@ -1,1 +1,2 @@
-"""Decode-path attention ops and the build of their CUDA kernels."""
+"""Attention ops (paged decode, full-sequence forward and backward) and
+the build of their CUDA kernels."""

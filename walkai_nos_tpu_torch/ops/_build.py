@@ -26,7 +26,9 @@ __all__ = ["BUILD_DIR", "CSRC_DIR", "KERNEL_SOURCES", "load_kernels"]
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_kernels_build")
-KERNEL_SOURCES = ("paged_attention", "qkv_rope")
+KERNEL_SOURCES = (
+    "paged_attention", "qkv_rope", "flash_attention", "flash_attention_bwd",
+)
 
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
