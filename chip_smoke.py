@@ -14,35 +14,50 @@ the CUDA toolkit (`nvcc`). It:
    including a block edge and one past the table's capacity), and times
    kernel, plain version and a PyTorch library yardstick with CUDA
    events;
-3. serves 8 greedy requests (prompts of 40-600 tokens, two sharing a
+3. holds K7 (dense-cache decode attention) against its plain version in
+   bf16 and f32 at the generate step's shape (8 rows, 32 heads over 4 kv
+   heads, 1024-row cache, shared index 1000), the dense engine's (2048-row
+   cache, per-row indices 0, 127, 128 and past the cache), the speculative
+   verify's (5 steps, batch 1) and an MHA shape, and times kernel, plain
+   version and SDPA over the masked cache;
+4. serves 8 greedy requests (prompts of 40-600 tokens, two sharing a
    256-token prefix, 32 new tokens each) through the port's
    `ContinuousBatcher` at TinyLlama-1.1B width (22 layers, random bf16
    weights from --seed), checks every request, the kernels' launch
    counts, a prefix-cache hit, and that one request re-served alone on
    a fresh engine gives the same tokens;
-4. serves 2 requests through the unfused route (`fused_qkv=False`, 4
+5. generates 128 tokens for 8 prompts through `make_generate_fn` at
+   TinyLlama-1.1B width (dense cache, chunks of 16 steps): 22 K7
+   launches per decode step, two runs give the same tokens, tokens/s,
+   step time, peak memory and a profiled window; then speculative
+   decoding of 64 tokens (batch 1, a `draft_config` draft, k 4): 22 K7
+   launches per verify round and the acceptance histogram; then the
+   dense engine (`paged=False`, 8 slots, cache_len 2048) on the serving
+   prompts, with a request re-served alone; then, in f32 at 4 layers,
+   the same greedy tokens from all three entry points;
+6. serves 2 requests through the unfused route (`fused_qkv=False`, 4
    layers), which runs K1 without fresh-row injection and no K2;
-5. holds K3 (packed ViT attention), K4 (flash forward + lse), K5 (dq)
+7. holds K3 (packed ViT attention), K4 (flash forward + lse), K5 (dq)
    and K6 (dk/dv) against their plain versions at the ViT's shapes (batch
    32, 296 tokens, 6 heads of 64) in bf16 and f32, plus a causal sq != sk
    shape and a kv_len < sk shape; checks that two backward runs give
    bitwise-identical gradients; times kernel, plain version and SDPA;
-6. serves 64 requests of 1-8 images (sizes from --seed, 8 client
+8. serves 64 requests of 1-8 images (sizes from --seed, 8 client
    threads) through the ViT micro-batcher at YOLOS-small width (12
    layers, random weights cast to bf16 once), checks every request, each
    bucket's output against the plain attention path on the same input
    and 12 K3 launches per batch, and prints fenced images/s, p50/p99
    latency, padded images, device starvation, the calibrated ceiling and
    the device-busy share of a profiled window;
-7. trains YOLOS-small (f32 masters, bf16 compute, batch 32): the step-1
+9. trains YOLOS-small (f32 masters, bf16 compute, batch 32): the step-1
    gradient of every parameter through K3-K6 against the plain
    attention's, 20 steps through `fit` on a repeated synthetic batch
    with a checkpoint at step 10 (the loss must fall), a resume from step
    10 that must replay the same losses, 12 launches per step of each of
    K3-K6, then step time, images/s and a profiled window;
-8. prints the card's name and power limit, one JSON line with every
-   kernel's numbers, and as the last line
-   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+10. prints the card's name and power limit, one JSON line with every
+    kernel's numbers, and as the last line
+    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Any failed phase raises and the script exits non-zero; without a GPU it
 exits non-zero before printing any result. Long outputs also go to
@@ -322,6 +337,7 @@ def serving_phase(ContinuousBatcher, LMConfig, DecoderLM, da, seed: int) -> dict
         norm="rmsnorm", mlp="swiglu", rope=True, rope_theta=10000.0,
         use_bias=False, head_bias=False, layer_norm_eps=1e-5,
     )
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     model = DecoderLM(cfg, device="cuda", seed=seed)
     torch.cuda.synchronize()
@@ -358,9 +374,11 @@ def serving_phase(ContinuousBatcher, LMConfig, DecoderLM, da, seed: int) -> dict
     for r in rids:
         if len(records[r]["tokens"]) != new:
             _fail(f"request {r} returned {len(records[r]['tokens'])} tokens")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("paged_attention", "qkv_rope"):
+        if launches[name] <= 0:
             _fail(f"kernel {name} was not launched on the serving path")
+    if launches["decode_attention"]:
+        _fail(f"the paged engine launched the dense kernel: {launches}")
     prefix = engine.prefix_stats()
     if prefix["block_hits"] < 1:
         _fail(f"no prefix-cache hit: {prefix}")
@@ -396,7 +414,249 @@ def serving_phase(ContinuousBatcher, LMConfig, DecoderLM, da, seed: int) -> dict
         "profile": profile,
         "_model": model,
         "_cfg": cfg,
+        "_prompts": prompts,
     }
+
+
+def dense_kernel_phase(da, seed: int) -> tuple[list, list]:
+    """K7 (dense-cache decode attention) against its plain version in
+    bf16 and f32 at the dense decode path's shapes: the generate step
+    (TinyLlama, 8 rows over a 1024-row bucket, shared index 1000), the
+    dense engine's step (2048-row cache, per-row indices at the edges and
+    past the cache), the speculative verify (5 steps, batch 1) and an MHA
+    model (32 heads over 32 kv heads). Times kernel, plain version and
+    SDPA over the same masked cache (GQA enabled) in bf16, each against
+    the byte bound of this case's visible rows. Returns (checks, rows)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    bf = torch.bfloat16
+    ragged = [0, 127, 128, 1000, 1500, 2047, 2048, 2100]  # S = 2048
+    # (case, b, h, kvh, S, steps, index)
+    cases = (
+        ("generate", 8, 32, 4, 1024, 1, 1000),
+        ("ragged_2048", 8, 32, 4, 2048, 1, ragged),
+        ("verify", 1, 32, 4, 1024, 5, 900),
+        ("mha", 8, 32, 32, 1024, 1, 1000),
+    )
+    checks, rows = [], []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for case, b, h, kvh, S, steps, index in cases:
+        hd = 64
+        idx = torch.tensor(index, device=dev, dtype=torch.int32)
+        q = torch.randn(b, h, steps, hd, generator=gen, device=dev).to(bf)
+        kvs = [
+            tuple(torch.randn(b, kvh, S, hd, generator=gen, device=dev).to(bf)
+                  for _ in range(2))
+            for _ in range(ROTATE)
+        ]
+        for dtype in (bf, torch.float32):
+            q_, (k_, v_) = q.to(dtype), (t.to(dtype) for t in kvs[0])
+            e, ratio = _err([da.decode_attention(q_, k_, v_, idx)],
+                            [da.decode_attention_reference(q_, k_, v_, idx)], dtype)
+            checks.append({
+                "kernel": "decode_attention", "case": case,
+                "dtype": str(dtype).split(".")[-1], "max_abs_err": e,
+                "err_over_tol": ratio,
+                "tol": "%g * max|plain| per row + %g" % TOL[dtype],
+            })
+            if not ratio <= 1.0:
+                _fail(f"decode_attention {case} {dtype}: max err {e}, "
+                      f"{ratio:.3g}x its tolerance")
+        # Rows each query of this case's data sees (clamped to the cache).
+        top = idx.long().reshape(-1).expand(b) + steps
+        vis = float(torch.clamp(top, max=S).sum())
+        nbytes = vis * kvh * hd * 2 * 2 + 2 * b * h * steps * hd * 2 + idx.numel() * 4
+        flops = 4.0 * vis * h * steps * hd
+        pos = torch.arange(S, device=dev)
+        qpos = idx.long().reshape(-1, 1) + torch.arange(steps, device=dev)
+        mask = (pos <= qpos[..., None])[:, None]  # [b or 1, 1, steps, S]
+
+        def kern(i):
+            da.decode_attention(q, *kvs[i % ROTATE], idx)
+
+        def plain(i):
+            da.decode_attention_reference(q, *kvs[i % ROTATE], idx)
+
+        def lib(i):
+            sdpa(q, *kvs[i % ROTATE], attn_mask=mask, enable_gqa=kvh != h)
+
+        bound_ms, bound_by = _bound(nbytes, flops)
+        rows.append({
+            "kernel": "decode_attention", "case": case,
+            "shape": f"b{b} h{h} kvh{kvh} d{hd} S{S} steps{steps} bf16",
+            "ms": _timed(kern, 20), "plain_ms": _timed(plain, 5),
+            "library_ms": _timed(lib, 20), "host_call_ms": _host_timed(kern, 50),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "flops": flops,
+        })
+    torch.cuda.empty_cache()
+    return checks, rows
+
+
+def generate_phase(make_generate_fn, da, model, cfg, seed: int) -> dict:
+    """One-shot generation (`make_generate_fn`, dense cache) at TinyLlama
+    width, bf16: 8 prompts of one length drawn from 769-896 tokens (the
+    cache bucket is then 1024 rows, K7's timed shape), 128 new tokens in
+    chunks of 16 steps. Checks 22 K7 launches per decode step, no paged
+    kernel, finite well-formed tokens and two identical runs; then a
+    profiled run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(seed + 3)
+    length = int(rng.integers(769, 897))
+    prompts = rng.integers(0, cfg.vocab_size, (8, length))
+    new, chunk = 128, 16
+    gen = make_generate_fn(cfg, tokens_per_dispatch=chunk)
+    gen(model, prompts[:, :16], 2)  # first calls allocate: warm them
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    da.reset_launch_counts()
+    t0 = time.monotonic()
+    first = gen(model, prompts, new)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(da.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps = -(-(new - 1) // chunk) * chunk  # decode steps after the prefill
+    if launches["decode_attention"] != cfg.num_layers * steps:
+        _fail(f"generate: {launches} for {steps} decode steps")
+    if launches["paged_attention"] or launches["qkv_rope"]:
+        _fail(f"generate launched paged kernels: {launches}")
+    tokens = first.cpu().numpy()
+    if tokens.shape != (8, new) or tokens.min() < 0 or tokens.max() >= cfg.vocab_size:
+        _fail(f"generate: tokens of shape {tokens.shape}")
+    # Prefill alone, to split the wall time.
+    t0 = time.monotonic()
+    gen(model, prompts, 1)
+    torch.cuda.synchronize()
+    prefill_s = time.monotonic() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        again = gen(model, prompts, new)
+        torch.cuda.synchronize()
+        pwall = time.monotonic() - t0
+    if not torch.equal(again, first):
+        _fail("generate: two runs gave different tokens")
+    return {
+        "model": "TinyLlama-1.1B widths, 22 layers, random bf16 weights",
+        "batch": 8, "prompt_len": length, "new_tokens": new,
+        "tokens_per_dispatch": chunk,
+        "cache_bucket": -(-(length + new) // 128) * 128,
+        "wall_s": wall, "prefill_s": prefill_s,
+        "decode_tokens_per_s": 8 * (new - 1) / (wall - prefill_s),
+        "step_ms": (wall - prefill_s) / steps * 1e3,
+        "launches": launches, "decode_steps": steps,
+        "two_runs_identical": True, "peak_mem_gb": peak,
+        "profile": _profile_summary(prof, pwall, "generate_profile.txt"),
+        "_prompts": prompts,
+    }
+
+
+def speculative_phase(spec_mod, lm_mod, da, model, cfg, prompt, seed: int) -> dict:
+    """Standalone speculative decoding at TinyLlama width, bf16, batch 1:
+    a `draft_config` draft (1 layer, 512 wide, 8 MHA heads, random
+    weights from --seed), k 4, 64 new tokens. Checks 22 K7 launches per
+    verify round (the target's 5-position verify; the MHA draft and the
+    prefills take the masked path)."""
+    k, new = 4, 64
+    draft_cfg = lm_mod.draft_config(cfg)
+    draft = lm_mod.DecoderLM(draft_cfg, device="cuda", seed=seed + 4)
+    gen = spec_mod.make_speculative_generate_fn(cfg, draft_cfg, k=k, return_stats=True)
+    gen(model, draft, prompt[None, :16], 6)  # warm
+    torch.cuda.synchronize()
+    da.reset_launch_counts()
+    t0 = time.monotonic()
+    tokens, stats = gen(model, draft, prompt[None], new)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(da.LAUNCHES)
+    hist = stats["acceptance_hist"].tolist()
+    rounds = sum(hist)
+    if tokens.shape != (1, new):
+        _fail(f"speculative: tokens of shape {tuple(tokens.shape)}")
+    if launches["decode_attention"] != cfg.num_layers * rounds:
+        _fail(f"speculative: {launches} for {rounds} verify rounds")
+    return {
+        "target": "TinyLlama-1.1B widths, 22 layers, random bf16 weights",
+        "draft": {f: getattr(draft_cfg, f) for f in
+                  ("num_layers", "hidden_dim", "num_heads", "mlp_width")},
+        "k": k, "prompt_len": int(len(prompt)), "new_tokens": new,
+        "acceptance_hist": hist, "rounds": rounds,
+        "mean_tokens_per_round": new / max(1, rounds),
+        "wall_s": wall, "tokens_per_s": new / wall, "launches": launches,
+    }
+
+
+def dense_serving_phase(ContinuousBatcher, da, model, cfg, prompts) -> dict:
+    """The dense engine (`paged=False`) at TinyLlama width, bf16: 8 slots,
+    cache_len 2048, the serving phase's 8 prompts, 32 new tokens each.
+    Checks every request, K7 launches (its per-row arm), no paged kernel,
+    and one request alone on a fresh engine giving the same tokens."""
+    new = 32
+    kw = dict(slots=8, cache_len=2048, paged=False)
+    engine = ContinuousBatcher(cfg, model, **kw)
+    engine.warm()
+    torch.cuda.synchronize()
+    da.reset_launch_counts()
+    d0 = engine.obs.dispatches.value()
+    t0 = time.monotonic()
+    rids = [engine.submit(p, max_new_tokens=new) for p in prompts]
+    out = engine.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(da.LAUNCHES)
+    dispatches = int(engine.obs.dispatches.value() - d0)
+    if any(len(out[r]) != new for r in rids):
+        _fail("dense engine: a request came back short")
+    if launches["decode_attention"] <= 0 or launches["paged_attention"] or launches["qkv_rope"]:
+        _fail(f"dense engine launched {launches}")
+    alone = ContinuousBatcher(cfg, model, **kw)
+    rid = alone.submit(prompts[4], max_new_tokens=new)
+    if alone.run()[rid] != out[rids[4]]:
+        _fail("dense engine: the request alone gave other tokens than in the batch")
+    return {
+        "slots": 8, "cache_len": 2048, "requests": len(rids),
+        "new_tokens_each": new, "wall_s": wall,
+        "decode_tokens_per_s": new * len(rids) / wall,
+        "dispatches": dispatches, "launches": launches,
+        "alone_equals_batched": True, "kv": engine.kv_stats(),
+        "occupancy": engine.occupancy(),
+    }
+
+
+def exactness_phase(ContinuousBatcher, make_generate_fn, spec_mod, lm_mod, da,
+                    cfg, prompts, seed: int) -> dict:
+    """The three dense entry points at TinyLlama width, 4 layers, f32
+    (bf16 GEMMs of other shapes round differently): greedy tokens of
+    `make_generate_fn`, the speculative generator with the target as its
+    own draft, and the dense engine must be identical, request by
+    request."""
+    import dataclasses
+
+    cfg32 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
+    model = lm_mod.DecoderLM(cfg32, device="cuda", seed=seed + 5)
+    new = 32
+    picks = [prompts[i] for i in (1, 3, 6)]
+    gen = make_generate_fn(cfg32)
+    spec = spec_mod.make_speculative_generate_fn(cfg32, cfg32, k=4)
+    engine = ContinuousBatcher(cfg32, model, slots=2, cache_len=1024, paged=False)
+    da.reset_launch_counts()
+    rids = [engine.submit(p, max_new_tokens=new) for p in picks]
+    served = engine.run()
+    for p, rid in zip(picks, rids):
+        one = gen(model, p[None], new)[0].tolist()
+        sp = spec(model, model, p[None], new)[0].tolist()
+        if not one == sp == served[rid]:
+            _fail(f"f32 entry points disagree on a {len(p)}-token prompt: "
+                  f"generate {one}, speculative {sp}, dense engine {served[rid]}")
+    torch.cuda.synchronize()
+    launches = dict(da.LAUNCHES)
+    if launches["decode_attention"] <= 0:
+        _fail(f"f32 exactness: K7 was not launched: {launches}")
+    del model, engine
+    torch.cuda.empty_cache()
+    return {"layers": 4, "dtype": "float32", "requests": len(picks),
+            "new_tokens_each": new, "identical": True, "launches": launches}
 
 
 def profile_window(engine, prompts, new: int) -> dict:
@@ -762,6 +1022,7 @@ def vit_training_phase(vit_mod, train_mod, trainer_mod, data_mod, fa, seed: int)
     the launch counts."""
     cfg = vit_mod.VIT_SMALL
     b = VIT_B
+    torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(seed + 2)
     labels = rng.integers(0, cfg.num_classes, (b, cfg.num_det_tokens)).astype(np.int32)
     labels[:, ::2] = cfg.num_classes - 1  # half the slots: no object
@@ -876,8 +1137,11 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from walkai_nos_tpu_torch.models import lm as lm_mod
     from walkai_nos_tpu_torch.models.lm import DecoderLM, LMConfig
     from walkai_nos_tpu_torch.models import data as data_mod
+    from walkai_nos_tpu_torch.models import speculative as spec_mod
+    from walkai_nos_tpu_torch.models.decode import make_generate_fn
     from walkai_nos_tpu_torch.models import train as train_mod
     from walkai_nos_tpu_torch.models import trainer as trainer_mod
     from walkai_nos_tpu_torch.models import vit as vit_mod
@@ -904,6 +1168,8 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     checks, rows = kernel_phase(da, args.seed)
+    dchecks, drows = dense_kernel_phase(da, args.seed)
+    checks, rows = checks + dchecks, rows + drows
     for c in checks:
         print(json.dumps({"check": c}), flush=True)
     for r in rows:
@@ -911,9 +1177,22 @@ def main() -> int:
 
     serve = serving_phase(ContinuousBatcher, LMConfig, DecoderLM, da, args.seed)
     model, cfg = serve.pop("_model"), serve.pop("_cfg")
+    serve_prompts = serve.pop("_prompts")
     print(json.dumps({"serving": serve}), flush=True)
+    generate = generate_phase(make_generate_fn, da, model, cfg, args.seed)
+    gen_prompts = generate.pop("_prompts")
+    print(json.dumps({"generate": generate}), flush=True)
+    speculative = speculative_phase(spec_mod, lm_mod, da, model, cfg,
+                                    gen_prompts[0], args.seed)
+    print(json.dumps({"speculative": speculative}), flush=True)
+    dense_serve = dense_serving_phase(ContinuousBatcher, da, model, cfg,
+                                      serve_prompts)
+    print(json.dumps({"dense_serving": dense_serve}), flush=True)
     del model
     torch.cuda.empty_cache()
+    exact = exactness_phase(ContinuousBatcher, make_generate_fn, spec_mod, lm_mod,
+                            da, cfg, serve_prompts, args.seed)
+    print(json.dumps({"exactness_f32": exact}), flush=True)
     unfused = unfused_phase(ContinuousBatcher, DecoderLM, da, cfg, args.seed)
     print(json.dumps({"unfused": unfused}), flush=True)
     torch.cuda.empty_cache()
@@ -955,9 +1234,9 @@ def main() -> int:
                              vit_serve["launches"]["packed_attention"]),
         "flash_fwd": ("flash_attention.cu", "walkai_nos_tpu/ops/attention.py:648",
                       vit_train["launches_20_steps"]["flash_fwd"]),
-        "flash_dq": ("flash_attention_bwd.cu", "walkai_nos_tpu/ops/attention.py:212",
+        "flash_dq": ("flash_attention_bwd.cu", "walkai_nos_tpu/ops/attention.py:353",
                      vit_train["launches_20_steps"]["flash_dq"]),
-        "flash_dkv": ("flash_attention_bwd.cu", "walkai_nos_tpu/ops/attention.py:269",
+        "flash_dkv": ("flash_attention_bwd.cu", "walkai_nos_tpu/ops/attention.py:372",
                       vit_train["launches_20_steps"]["flash_dkv"]),
     }
     for name, (source, replaces, launches) in vit_src.items():
@@ -972,11 +1251,27 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
+    t = next(r for r in rows if r["kernel"] == "decode_attention"
+             and r["case"] == "generate")
+    kernels.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": f"{src}decode_attention.cu",
+        "replaces": "walkai_nos_tpu/ops/decode_attention.py:313",
+        "launches": generate["launches"]["decode_attention"],
+        "max_abs_err": max(
+            c["max_abs_err"] for c in checks
+            if c["kernel"] == "decode_attention" and c["dtype"] == "bfloat16"
+        ),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    })
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({
             "card": smi, "checks": checks + vchecks, "timing": rows + vrows,
-            "serving": serve, "unfused": unfused, "vit_serving": vit_serve,
+            "serving": serve, "generate": generate, "speculative": speculative,
+            "dense_serving": dense_serve, "exactness_f32": exact,
+            "unfused": unfused, "vit_serving": vit_serve,
             "vit_training": vit_train, "kernels": kernels,
         }, f, indent=1)
     print(smi, flush=True)

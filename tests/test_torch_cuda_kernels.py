@@ -361,3 +361,100 @@ def test_vit_kernel_path_matches_plain_path(cuda):
         _close_rel(out_k[key], out_p[key].to(cuda), torch.float32, key)
     for name, g in g_p.items():
         _close_rel(g_k[name], g.to(cuda), torch.float32, name)
+
+
+# -- K7: dense-cache decode attention ----------------------------------------
+
+
+def _dense_case(dev, dtype, *, b=5, h=4, kvh=2, hd=64, steps=3, cache_len=256,
+                seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    return rnd(b, h, steps, hd), rnd(b, kvh, cache_len, hd), rnd(b, kvh, cache_len, hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cache_len", [256, 384, 200])
+@pytest.mark.parametrize("steps", [1, 3, 8])
+@pytest.mark.parametrize("kvh", [1, 2, 4])
+def test_dense_decode_attention_matches_plain(cuda, dtype, cache_len, steps, kvh):
+    """Per-row indices at the slot start, a 128-row edge, inside and one
+    past the cache; a shared index; 4-d and (one step) 3-d q; cache
+    lengths on and off the 64-row tile."""
+    q, k, v = _dense_case(cuda, dtype, kvh=kvh, steps=steps, cache_len=cache_len,
+                          seed=kvh * 10 + steps)
+    ragged = torch.tensor([0, 126, 127, 128, cache_len], device=cuda, dtype=torch.int32)
+    shared = torch.tensor(cache_len - steps - 7, device=cuda, dtype=torch.int32)
+    for index in (ragged, shared):
+        before = da.LAUNCHES["decode_attention"]
+        got = da.decode_attention(q, k, v, index)
+        assert da.LAUNCHES["decode_attention"] == before + 1
+        _close_rel(got, da.decode_attention_reference(q, k, v, index), dtype)
+        if steps == 1:
+            got3 = da.decode_attention(q[:, :, 0], k, v, index)
+            torch.testing.assert_close(got3, got[:, :, 0], atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_attention_generate_shapes(cuda, dtype):
+    """TinyLlama's groups (32 heads over 4 kv heads) at 8 steps, head
+    dim 128, and MHA; an int index."""
+    for h, kvh, hd, steps in ((32, 4, 64, 8), (8, 8, 128, 2), (32, 32, 64, 1)):
+        q, k, v = _dense_case(cuda, dtype, b=2, h=h, kvh=kvh, hd=hd, steps=steps,
+                              cache_len=1024)
+        _close_rel(da.decode_attention(q, k, v, 1000),
+                   da.decode_attention_reference(q, k, v, 1000), dtype)
+
+
+@pytest.mark.cuda
+def test_dense_decode_attention_rows_do_not_depend_on_the_batch(cuda):
+    """Row 0's output is bit-identical whatever the other rows hold and
+    wherever their indices lie (the split comes from the shapes only)."""
+    q, k, v = _dense_case(cuda, torch.bfloat16, steps=1, cache_len=512)
+    q2, k2, v2 = _dense_case(cuda, torch.bfloat16, steps=1, cache_len=512, seed=1)
+    q2[0], k2[0], v2[0] = q[0], k[0], v[0]
+    a = da.decode_attention(q, k, v, torch.tensor([300, 1, 2, 3, 4], device=cuda))
+    b = da.decode_attention(q2, k2, v2, torch.tensor([300, 511, 600, 0, 9], device=cuda))
+    torch.testing.assert_close(a[0], b[0], atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_dense_decode_attention_limits_raise(cuda):
+    q, k, v = _dense_case(cuda, torch.float32, h=32, kvh=1, steps=8)
+    with pytest.raises(ValueError, match="group \\* steps"):
+        da.decode_attention(q, k, v, 10)
+    q, k, v = _dense_case(cuda, torch.float32, hd=32)
+    with pytest.raises(ValueError, match="head_dim"):
+        da.decode_attention(q, k, v, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvh,decode_kernel", [(2, False), (8, True)])
+def test_decoder_dense_cache_on_the_card_matches_cpu(cuda, kvh, decode_kernel):
+    """DecoderLM over a ragged DenseCache on the card (K7 for the steps)
+    against the same weights on the CPU (plain attention), in f32: a
+    prefill, then single steps and a 5-step verify-shaped call, one row
+    stepping past the cache's end."""
+    cfg = tlm.LMConfig(
+        vocab_size=128, hidden_dim=512, num_layers=2, num_heads=8,
+        num_kv_heads=kvh, mlp_dim=256, max_seq_len=512, dtype="float32",
+        norm="rmsnorm", mlp="swiglu", rope=True, use_bias=False,
+        head_bias=False, ragged_decode=True, decode_kernel=decode_kernel,
+    )
+    tokens = torch.randint(0, 128, (2, 90), generator=torch.Generator().manual_seed(1))
+    plain = tlm.DecoderLM(cfg, device="cpu", seed=7)
+    out = []
+    for dev, model in ((cuda, copy.deepcopy(plain).to(cuda)), (torch.device("cpu"), plain)):
+        cache = tlm.DenseCache.zeros(cfg, 2, dev, cache_len=128)
+        with torch.inference_mode():
+            logits = [model(tokens[:, :64].to(dev), cache)]
+            cache.index[1] = 120  # row 1 runs past the 128-row cache
+            logits += [model(tokens[:, 64 + i:65 + i].to(dev), cache) for i in range(6)]
+            logits.append(model(tokens[:, 80:85].to(dev), cache))
+        out.append(torch.cat([x.float().cpu() for x in logits], 1))
+    torch.testing.assert_close(out[0], out[1], atol=1e-4, rtol=1e-4)

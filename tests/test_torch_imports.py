@@ -37,7 +37,7 @@ def test_port_imports_no_jax():
     assert "walkai_nos_tpu_torch.ops.decode_attention" in mods
     for mod in ("ops.attention", "models.vit", "models.train", "models.trainer",
                 "models.checkpoint", "models.data", "models.vit_serving",
-                "utils.flops"):
+                "models.speculative", "models.decode", "utils.flops"):
         assert f"walkai_nos_tpu_torch.{mod}" in mods
     code = (
         "import importlib, sys\n"
@@ -77,7 +77,11 @@ def test_default_device_is_cuda_and_refuses_without_gpu():
     from walkai_nos_tpu_torch.device import resolve_device
     from walkai_nos_tpu_torch.models.lm import LM_TINY, DecoderLM
     from walkai_nos_tpu_torch.models.data import prefetch_to_device
+    from walkai_nos_tpu_torch.models.decode import make_generate_fn
     from walkai_nos_tpu_torch.models.serve import ContinuousBatcher
+    from walkai_nos_tpu_torch.models.speculative import (
+        make_speculative_generate_fn,
+    )
     from walkai_nos_tpu_torch.models.train import (
         init_train_state,
         make_infer_step,
@@ -93,6 +97,11 @@ def test_default_device_is_cuda_and_refuses_without_gpu():
         lambda: resolve_device(None),
         lambda: DecoderLM(LM_TINY),
         lambda: ContinuousBatcher(LM_TINY, {}, slots=1, cache_len=128),
+        lambda: ContinuousBatcher(
+            LM_TINY, {}, slots=1, cache_len=128, paged=False
+        ),
+        lambda: make_generate_fn(LM_TINY),
+        lambda: make_speculative_generate_fn(LM_TINY, LM_TINY),
         lambda: ViTDetector(VIT_TINY),
         lambda: init_train_state(VIT_TINY),
         lambda: make_train_step(VIT_TINY),

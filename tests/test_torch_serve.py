@@ -187,7 +187,9 @@ def test_pool_overflow_rejected(served):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(spec=True), dict(loop_steps=2), dict(paged=False),
+        dict(spec=True), dict(loop_steps=2),
+        # The dense engine is ported; its later-slice features are not.
+        dict(paged=False, capture="/nonexistent"),
         dict(sp_prefill=True), dict(capture="/nonexistent"),
         dict(adapters=object()),
         # Options of those features: set, they raise rather than sit inert.

@@ -1,5 +1,5 @@
-"""Decoder-only language model: the paged decode path of the serving
-engine, in PyTorch.
+"""Decoder-only language model: the decode paths of the serving engine
+and of one-shot generation, in PyTorch.
 
 Port of `walkai_nos_tpu/models/lm.py`. `LMConfig` keeps every field,
 default and validation of the JAX config, so configurations, capture
@@ -7,24 +7,37 @@ fingerprints and replay keys carry over; the knobs this slice does not
 run (experts, tensor parallelism, int8 storage, ring/ulysses attention)
 raise NotImplementedError at construction.
 
-`DecoderLM` runs the decode forward over a PAGED KV cache: each layer
-holds a shared pool of 128-row K/V blocks ([paged_blocks, kv_heads,
-PAGE_ROWS, head_dim]); a per-slot block table maps logical cache block
-j of slot b to a pool block. The pools live in a `PagedCache` the caller
-owns and are written IN PLACE (the JAX model returns a new cache from a
-donated buffer). The per-slot cache index is an argument, not cache
-state: the caller advances it by the step count after each forward.
+`DecoderLM` runs the decode forward over one of two KV caches:
 
-Attention routes exactly as `CausalAttention.__call__` does in JAX:
+- a PAGED cache (`PagedCache`, the paged serving engine): each layer
+  holds a shared pool of 128-row K/V blocks ([paged_blocks, kv_heads,
+  PAGE_ROWS, head_dim]); a per-slot block table maps logical cache block
+  j of slot b to a pool block. The per-slot cache index is an argument,
+  not cache state: the caller advances it by the step count after each
+  forward;
+- a DENSE cache (`DenseCache`: one-shot generation, speculative decoding
+  and the dense serving engine): per layer K/V of [batch, kv_heads,
+  cache_len, head_dim], and one index, 0-d or [batch] (ragged). It is the
+  JAX cache collection (`cached_key`, `cached_value`, `cache_index`,
+  `pos_index`); the forward advances its index by the step count, even
+  past cache_len, on the device.
 
-- a short step (<= MAX_KERNEL_STEPS positions) on a CUDA tensor with
-  `fused_qkv=True` takes the fused QKV + rotary + paged attention
+Both are written IN PLACE (the JAX model returns a new cache from a
+donated buffer). Attention routes exactly as `CausalAttention.__call__`
+does in JAX:
+
+- paged, a short step (<= MAX_KERNEL_STEPS positions) on a CUDA tensor
+  with `fused_qkv=True` takes the fused QKV + rotary + paged attention
   kernels (`ops/decode_attention.fused_qkv_paged_attention`), then
   scatters the fresh rows;
-- otherwise the unfused composition: projection, rotary, scatter, then
-  the paged attention kernel for short steps (plain version on the CPU)
-  or, for wide prefill chunks, a gather of the slot's blocks and plain
-  masked attention (`_masked_cache_attention`).
+- paged otherwise, the unfused composition: projection, rotary, scatter,
+  then the paged attention kernel for short steps (plain version on the
+  CPU) or, for wide prefill chunks, a gather of the slot's blocks and
+  plain masked attention (`_masked_cache_attention`);
+- dense: projection, rotary, the cache write with XLA's
+  `dynamic_update_slice` clamping, then the streamed dense kernel
+  (`ops/decode_attention.decode_attention`) for a short step of a GQA
+  model or with `decode_kernel`, else `_masked_cache_attention`.
 
 Parameter layout follows flax (see `models/convert.py`): Dense kernels
 are stored [in, out], the layout the fused QKV kernel reads.
@@ -32,6 +45,8 @@ are stored [in, out], the layout the fused QKV kernel reads.
 
 from __future__ import annotations
 
+import dataclasses
+from collections.abc import Mapping
 from dataclasses import dataclass
 
 import torch
@@ -39,9 +54,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from walkai_nos_tpu_torch.device import resolve_device
+from walkai_nos_tpu_torch.models.convert import load_flax_params
 from walkai_nos_tpu_torch.ops.decode_attention import (
     MAX_KERNEL_STEPS,
     PAGE_ROWS,
+    decode_attention,
     fused_qkv_paged_attention,
     gather_paged_cache,
     paged_decode_attention,
@@ -53,11 +70,13 @@ from walkai_nos_tpu_torch.ops.decode_attention import (
 
 __all__ = [
     "DecoderLM",
+    "DenseCache",
     "LMConfig",
     "LM_SMALL",
     "LM_TINY",
     "PagedCache",
     "apply_rope",
+    "draft_config",
 ]
 
 _DTYPES = {
@@ -210,6 +229,40 @@ LM_TINY = LMConfig(
 LM_SMALL = LMConfig()
 
 
+def draft_config(
+    cfg: LMConfig,
+    *,
+    num_layers: int = 1,
+    hidden_dim: int | None = None,
+    num_heads: int | None = None,
+) -> LMConfig:
+    """A draft-model config for speculative decoding against `cfg` (the
+    JAX `draft_config`): same vocabulary, context, positional scheme and
+    norm/MLP family, but `num_layers` layers (1) at ~1/4 of the width and
+    heads, MHA, no experts, no paged or ragged cache fields."""
+    heads = num_heads or max(1, cfg.num_heads // 4)
+    hidden = hidden_dim or max(32, cfg.hidden_dim // 4)
+    # head_dim must divide evenly, and rope needs it even.
+    quantum = 2 * heads
+    hidden = -(-hidden // quantum) * quantum
+    return dataclasses.replace(
+        cfg,
+        num_layers=num_layers,
+        hidden_dim=hidden,
+        num_heads=heads,
+        num_kv_heads=None,
+        mlp_dim=None,
+        num_experts=0,
+        remat=False,
+        use_ring_attention=False,
+        use_ulysses_attention=False,
+        ragged_decode=False,
+        paged_decode=False,
+        paged_blocks=0,
+        tp_devices=1,
+    )
+
+
 def apply_rope(
     x: torch.Tensor, positions: torch.Tensor, theta: float
 ) -> torch.Tensor:
@@ -275,17 +328,22 @@ class Norm(nn.Module):
 
 
 def _masked_cache_attention(q, k_all, v_all, idx):
-    """Dense masked attention over a gathered cache view, per-row (ragged)
-    index: the wide-prefill tail. q: [batch, heads, steps, d]; k/v_all:
-    [batch, kv_heads, cache_len, d]; position p is visible to query
-    row r iff p <= idx + r. GQA computes per (slot, kv head) cell with
-    f32 accumulation; MHA mirrors the JAX branch (f32 scores, PV in v's
-    dtype)."""
+    """Dense masked attention over a full cache view: the decode tail of
+    the dense cache and of the paged gather path. q: [batch, heads,
+    steps, d]; k/v_all: [batch, kv_heads, cache_len, d]; idx: 0-d (every
+    row at one position) or [batch] (ragged); position p is visible to
+    query row r iff p <= idx + r. GQA computes per (slot, kv head) cell
+    with f32 accumulation; MHA mirrors the JAX branch (f32 scores, PV in
+    v's dtype)."""
     batch, heads, steps, hd = q.shape
     kvh, cache_len = k_all.shape[1], k_all.shape[2]
-    q_pos = idx.long()[:, None] + torch.arange(steps, device=q.device)
+    q_pos = idx.long()[..., None] + torch.arange(steps, device=q.device)
     k_pos = torch.arange(cache_len, device=q.device)
-    mask = k_pos[None, None, :] <= q_pos[..., None]  # [b, steps, cache]
+    # [steps, cache] for a shared index, [b, steps, cache] when ragged;
+    # either way [b or 1, steps, cache] below.
+    mask = k_pos <= q_pos[..., None]
+    if mask.dim() == 2:
+        mask = mask[None]
     scale = hd ** -0.5
     if kvh != heads:
         g = heads // kvh
@@ -322,10 +380,14 @@ class CausalAttention(nn.Module):
         self.out_proj = Dense(d, d, bias=cfg.use_bias, **kw)
 
     def forward(self, x, k_pool, v_pool, table, index):
+        """`table` None means a dense cache: k_pool / v_pool are then the
+        layer's [batch, kv_heads, cache_len, head_dim] K/V."""
         c = self.cfg
         b, s = x.shape[0], x.shape[1]
         theta = c.rope_theta if c.rope else None
-        if c.fused_qkv and s <= MAX_KERNEL_STEPS and x.is_cuda:
+        if table is None:
+            o = self._dense(x, k_pool, v_pool, index)
+        elif c.fused_qkv and s <= MAX_KERNEL_STEPS and x.is_cuda:
             o, k_new, v_new = fused_qkv_paged_attention(
                 x.to(c.compute_dtype), self.qkv.kernel, self.qkv.bias,
                 k_pool, v_pool, table, index,
@@ -352,6 +414,33 @@ class CausalAttention(nn.Module):
             q, gather_paged_cache(k_pool, table),
             gather_paged_cache(v_pool, table), index,
         )
+
+    def _dense(self, x, k_cache, v_cache, idx):
+        """Dense-cache decoding (JAX `_decode_attention`): projection ->
+        split -> rotary at idx + r -> cache write -> attention. The write
+        lands at min(idx, cache_len - steps), as XLA's dynamic_update_slice
+        clamps its start (freed serving slots keep stepping past
+        cache_len); the attention still masks at the true idx. No host
+        sync: positions stay device tensors."""
+        c = self.cfg
+        steps = x.shape[1]
+        q, k, v = split_qkv(
+            self.qkv(x), idx, num_heads=c.num_heads, kv_heads=c.kv_heads,
+            rope_theta=c.rope_theta if c.rope else None,
+        )
+        batch, kvh, cache_len, hd = k_cache.shape
+        widx = torch.clamp(idx.long(), 0, cache_len - steps)
+        pos = widx[..., None] + torch.arange(steps, device=x.device)
+        pos = pos.expand(batch, steps)[:, None, :, None].expand(
+            batch, kvh, steps, hd
+        )
+        k_cache.scatter_(2, pos, k.to(k_cache.dtype))
+        v_cache.scatter_(2, pos, v.to(v_cache.dtype))
+        if steps <= MAX_KERNEL_STEPS and (
+            kvh != c.num_heads or c.decode_kernel
+        ):
+            return decode_attention(q, k_cache, v_cache, idx)
+        return _masked_cache_attention(q, k_cache, v_cache, idx)
 
 
 class DecoderBlock(nn.Module):
@@ -405,6 +494,59 @@ class PagedCache:
         )
 
 
+@dataclass
+class DenseCache:
+    """Per-layer dense K/V, [batch, kv_heads, cache_len, head_dim] each in
+    the compute dtype, and the cache index: 0-d (every row at one
+    position) or [batch] int32 when `ragged_decode` is set. The JAX cache
+    collection's `cached_key` / `cached_value` / `cache_index` /
+    `pos_index`; `DecoderLM.forward` writes the rows in place and
+    advances `index` by the step count, on the device."""
+
+    k: list
+    v: list
+    index: torch.Tensor
+
+    @classmethod
+    def zeros(
+        cls, cfg: LMConfig, batch: int, device, cache_len: int | None = None,
+    ) -> "DenseCache":
+        """A zeroed cache of `cache_len` rows (default: cfg.cache_len,
+        else max_seq_len) at index 0."""
+        if cfg.paged_decode:
+            raise ValueError("a paged_decode config takes a PagedCache")
+        if cfg.kv_dtype != "model":
+            raise ValueError(
+                "kv_dtype != 'model' requires paged_decode (the per-row "
+                "scale store is block-parallel; the dense cache has no "
+                "block pool to parallel)"
+            )
+        rows = cache_len or cfg.cache_len or cfg.max_seq_len
+        shape = (batch, cfg.kv_heads, rows, cfg.head_dim)
+
+        def buf():
+            return torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+
+        index = torch.zeros(
+            (batch,) if cfg.ragged_decode else (), dtype=torch.int32,
+            device=device,
+        )
+        return cls(
+            [buf() for _ in range(cfg.num_layers)],
+            [buf() for _ in range(cfg.num_layers)],
+            index,
+        )
+
+    def row(self, b: int) -> "DenseCache":
+        """Batch row b as a one-row ragged cache at index 0 whose K/V are
+        VIEWS of this cache's: a forward through it writes row b's rows
+        in place (the dense engine's admission prefill)."""
+        return DenseCache(
+            [k[b:b + 1] for k in self.k], [v[b:b + 1] for v in self.v],
+            torch.zeros(1, dtype=torch.int32, device=self.index.device),
+        )
+
+
 class Embed(nn.Module):
     def __init__(self, cfg: LMConfig, device, gen):
         super().__init__()
@@ -418,9 +560,10 @@ class Embed(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """The decoder LM's paged decode forward. Weights are random from
-    `seed` (normal, std 0.02; norms at 1, biases at 0) until
-    `models/convert.py` loads a JAX tree. `device=None` means `cuda`."""
+    """The decoder LM's decode forward over a paged or a dense cache.
+    Weights are random from `seed` (normal, std 0.02; norms at 1, biases
+    at 0) until `models/convert.py` loads a JAX tree. `device=None` means
+    `cuda`."""
 
     def __init__(self, cfg: LMConfig, *, device=None, seed: int = 0):
         super().__init__()
@@ -444,22 +587,65 @@ class DecoderLM(nn.Module):
             dtype=torch.float32, device=dev, gen=gen,
         )
 
-    def forward(self, tokens, cache: PagedCache, table, index):
-        """tokens [batch, steps] at positions index .. index+steps-1 of
-        each slot -> f32 logits [batch, steps, vocab]. Writes the new
-        K/V rows into `cache` through `table` ([batch, nlog] block ids);
-        `index` ([batch] int) is the caller's to advance."""
+    @classmethod
+    def from_params(cls, cfg: LMConfig, params, device=None) -> "DecoderLM":
+        """`params` as the entry points take it: a `DecoderLM` built for
+        `cfg` up to its cache fields (used as it is, weights shared), or
+        the JAX package's flax param tree as nested numpy arrays (bridged
+        by `models/convert.py` onto `device`, None meaning `cuda`)."""
+        if isinstance(params, DecoderLM):
+            cache_fields = {
+                f: getattr(cfg, f) for f in (
+                    "ragged_decode", "paged_decode", "paged_blocks",
+                    "cache_len",
+                )
+            }
+            if dataclasses.replace(params.cfg, **cache_fields) != cfg:
+                raise ValueError("the DecoderLM was built for another config")
+            if device is not None and resolve_device(device) != params.device:
+                raise ValueError(
+                    f"the DecoderLM lives on {params.device}, not {device}"
+                )
+            return params
+        if not isinstance(params, Mapping):
+            raise TypeError(
+                "params must be a flax param tree (nested numpy arrays) "
+                "or a DecoderLM"
+            )
+        return load_flax_params(cls(cfg, device=device), params)
+
+    def forward(self, tokens, cache, table=None, index=None):
+        """tokens [batch, steps] -> f32 logits [batch, steps, vocab].
+
+        With a `PagedCache`: the tokens sit at positions index ..
+        index+steps-1 of each slot, the new K/V rows go into the pools
+        through `table` ([batch, nlog] block ids), and `index` ([batch]
+        int) is the caller's to advance. With a `DenseCache` (table and
+        index None): the tokens sit at cache.index onwards, and the
+        forward writes the rows and advances cache.index by steps."""
         c = self.cfg
+        steps = tokens.shape[1]
+        dense = isinstance(cache, DenseCache)
+        if dense:
+            if table is not None or index is not None:
+                raise ValueError(
+                    "a DenseCache carries its own index and takes no table"
+                )
+            index = cache.index
+        elif table is None or index is None:
+            raise ValueError("a PagedCache needs table= and index=")
         x = self.embed(tokens)
         if self.pos_embed is not None:
-            # Per-row slices of the position table with XLA's
-            # dynamic_slice clamping: a start past max_seq_len - steps
-            # (freed slots keep stepping) reads the table's last rows.
-            steps = tokens.shape[1]
+            # Slices of the position table with XLA's dynamic_slice
+            # clamping: a start past max_seq_len - steps (freed slots keep
+            # stepping; the last chunk of a generation overshoots) reads
+            # the table's last rows. Shared index: [steps] rows; ragged:
+            # [batch, steps].
             start = torch.clamp(index.long(), 0, c.max_seq_len - steps)
-            rows = start[:, None] + torch.arange(steps, device=x.device)
+            rows = start[..., None] + torch.arange(steps, device=x.device)
             x = x + self.pos_embed[0][rows].to(x.dtype)
         for i, block in enumerate(self.blocks):
             x = block(x, cache.k[i], cache.v[i], table, index)
+        if dense:
+            cache.index += steps
         return self.head(self.norm(x))
-

@@ -1,9 +1,9 @@
-"""Continuous batching for LM serving over a PAGED KV block pool.
+"""Continuous batching for LM serving over a paged or a dense KV cache.
 
 Port of `walkai_nos_tpu/models/serve.py:ContinuousBatcher` in its
-default mode (`paged=True`, `prefix_cache=True`): a fixed pool of
-`slots` sequences advances together through one decode program;
-requests join at dispatch boundaries through a chunked prefill lane and
+default mode (`paged=True`, `prefix_cache=True`) and its dense mode
+(`paged=False`): a fixed pool of `slots` sequences advances together
+through one decode program; requests join at dispatch boundaries and
 leave at EOS or their budget, without stopping the batch.
 
 - **Paged KV cache**: each layer's K/V live in a shared pool of 128-row
@@ -20,6 +20,12 @@ leave at EOS or their budget, without stopping the batch.
   released prefix blocks park (LRU) and are evicted only under
   pressure. Decode blocks are grabbed lazily at 128-row boundaries
   against a virtual worst-case reservation.
+- **Dense mode** (`paged=False`, the exactness baseline): one
+  `DenseCache` of `slots x cache_len` rows with a per-slot index, and
+  blocking admission: each request is prefilled alone at its bucket
+  (`prompt_bucket`, or the smallest power of two that fits) straight
+  into its slot's rows, then decodes with the others through the dense
+  decode kernel's per-row arm.
 - **Pipelined stepping**: the host keeps one chunk in flight and reads
   the previous chunk's tokens while the device computes the next.
 
@@ -29,7 +35,9 @@ What differs from the JAX engine, and why:
   pools are written in place where JAX donates buffers.
 - Every device program's shapes are fixed by `slots`, `prefill_lanes`
   and `prefill_chunk`: the lane always runs `prefill_lanes` rows over
-  the full table width (JAX rounds both to powers of two). With fixed
+  the full table width (JAX rounds both to powers of two); a dense
+  admission's by its prompt bucket, the dense decode by `slots` and
+  `cache_len`. With fixed
   shapes a row's output does not depend on what else shares the
   dispatch, even through stock GEMMs for the MLP and the LM head — the
   engine's defining invariant (ARCHITECTURE.md, capture & replay).
@@ -37,9 +45,10 @@ What differs from the JAX engine, and why:
   threefry bits; greedy streams match the JAX engine token for token.
 - The engine's features of later slices raise NotImplementedError at
   construction: `spec`, `loop_steps > 1`, `adapters`, `sp_prefill`,
-  `capture`, `paged=False`, and the `obs` telemetry planes, as does any
-  of their options (`prompt_bucket`, `sp_*`, `spec_*`, `draft_*`,
-  `slo_*`) set to other than its JAX default (the engine
+  `capture`, and the `obs` telemetry planes, as does any of their
+  options (`sp_*`, `spec_*`, `draft_*`, `slo_*`) set to other than its
+  JAX default, and `prompt_bucket` in paged mode, where it does nothing
+  (the engine
   keeps only the counters `occupancy()`, `kv_stats()` and
   `prefix_stats()` read, `models/serve_stats.py`).
 """
@@ -49,20 +58,23 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from collections.abc import Mapping
 
 import numpy as np
 import torch
 
-from walkai_nos_tpu_torch.device import resolve_device
 from walkai_nos_tpu_torch.models.block_pool import BlockPool
-from walkai_nos_tpu_torch.models.convert import load_flax_params
-from walkai_nos_tpu_torch.models.lm import DecoderLM, LMConfig, PagedCache
+from walkai_nos_tpu_torch.models.lm import (
+    DecoderLM,
+    DenseCache,
+    LMConfig,
+    PagedCache,
+)
 from walkai_nos_tpu_torch.models.prefix_cache import PrefixIndex
 from walkai_nos_tpu_torch.models.serve_lane import (
     SlotState,
     _Prefill,
     _Request,
+    admit_dense,
     decode_chunk,
     run_lane,
     to_device,
@@ -71,10 +83,6 @@ from walkai_nos_tpu_torch.models.serve_stats import EngineStats
 from walkai_nos_tpu_torch.ops.decode_attention import PAGE_ROWS
 
 __all__ = ["ContinuousBatcher"]
-
-# The engine's paged fields are its own (the JAX engine replaces them
-# on the caller's config the same way).
-_ENGINE_FIELDS = ("ragged_decode", "paged_decode", "paged_blocks", "cache_len")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -127,7 +135,6 @@ class ContinuousBatcher:
         device=None,
     ) -> None:
         for on, what, item in (
-            (not paged, "paged=False (the dense engine)", "engine features"),
             (loop_steps > 1, "loop_steps > 1", "loop_steps (CUDA graph)"),
             (spec, "spec=True", "speculative decoding"),
             (adapters is not None, "adapters", "LoRA"),
@@ -137,7 +144,8 @@ class ContinuousBatcher:
              or slo_window_s != 30.0, "the obs telemetry planes", "obs"),
             # The options of those features keep their JAX names; set to
             # anything but the JAX default they raise, never sit inert.
-            (prompt_bucket != 16, "prompt_bucket (a dense-engine option)",
+            (paged and prompt_bucket != 16,
+             "prompt_bucket in paged mode (a dense-engine option)",
              "engine features"),
             ((sp_min_tokens, sp_span) != (2048, 0), "the sp_prefill options",
              "sp_prefill"),
@@ -151,34 +159,52 @@ class ContinuousBatcher:
         if loop_steps < 1:
             raise ValueError(f"loop_steps must be >= 1; got {loop_steps}")
         cache_len = cache_len or cfg.max_seq_len
+        if prompt_bucket > cache_len:
+            raise ValueError(
+                f"prompt_bucket {prompt_bucket} exceeds cache_len "
+                f"{cache_len}: prefilled rows would not fit the cache"
+            )
         self.slots = slots
         self.cache_len = cache_len
+        self.prompt_bucket = prompt_bucket
         self.chunk_steps = chunk_steps
+        self.paged = paged
         self._nlog = -(-cache_len // PAGE_ROWS)
-        self.pool_blocks = pool_blocks or slots * self._nlog + 1
-        if self.pool_blocks < 2:
-            raise ValueError(
-                f"pool_blocks must be >= 2 (block 0 is the reserved "
-                f"scratch block); got {self.pool_blocks}"
-            )
-        self.prefill_chunk = max(1, min(prefill_chunk, cache_len))
-        self.prefill_lanes = max(1, prefill_lanes)
-        self.cfg = dataclasses.replace(
-            cfg, ragged_decode=True, cache_len=cache_len,
-            paged_decode=True, paged_blocks=self.pool_blocks,
-        )
-        self.model = self._build_model(cfg, params, device)
-        self.device = self.model.device
         self.obs = EngineStats()
-        self.pool = BlockPool(
-            slots=slots, cache_len=cache_len, pool_blocks=self.pool_blocks,
-            prefix=PrefixIndex(PAGE_ROWS) if prefix_cache else None,
-            obs=self.obs,
+        if paged:
+            self.pool_blocks = pool_blocks or slots * self._nlog + 1
+            if self.pool_blocks < 2:
+                raise ValueError(
+                    f"pool_blocks must be >= 2 (block 0 is the reserved "
+                    f"scratch block); got {self.pool_blocks}"
+                )
+            self.prefill_chunk = max(1, min(prefill_chunk, cache_len))
+            self.prefill_lanes = max(1, prefill_lanes)
+            self.cfg = dataclasses.replace(
+                cfg, ragged_decode=True, cache_len=cache_len,
+                paged_decode=True, paged_blocks=self.pool_blocks,
+            )
+            self.pool = BlockPool(
+                slots=slots, cache_len=cache_len,
+                pool_blocks=self.pool_blocks,
+                prefix=PrefixIndex(PAGE_ROWS) if prefix_cache else None,
+                obs=self.obs,
+            )
+            self.pool.set_gauges()
+        else:
+            self.pool_blocks = 0
+            self.prefill_lanes = 1  # admissions prefill one at a time
+            self.cfg = dataclasses.replace(
+                cfg, ragged_decode=True, cache_len=cache_len
+            )
+            self.pool = None
+        self.model = DecoderLM.from_params(self.cfg, params, device)
+        self.device = self.model.device
+        cache = (
+            PagedCache.zeros(self.cfg, self.device) if paged
+            else DenseCache.zeros(self.cfg, slots, self.device)
         )
-        self.pool.set_gauges()
-        self._state = SlotState.zeros(
-            PagedCache.zeros(self.cfg, self.device), slots, self.device
-        )
+        self._state = SlotState.zeros(cache, slots, self.device)
         self._requests: dict[int, _Request] = {}
         self._draining = False
         self._pending: deque[_Request] = deque()
@@ -190,25 +216,6 @@ class ContinuousBatcher:
         # In-flight chunk: (host copy of its tokens, ready event or
         # None, slot->request snapshot, "first token expected" flags).
         self._inflight: tuple | None = None
-
-    def _build_model(self, cfg: LMConfig, params, device) -> DecoderLM:
-        if isinstance(params, DecoderLM):
-            mine = dataclasses.replace(
-                params.cfg, **{f: getattr(cfg, f) for f in _ENGINE_FIELDS}
-            )
-            if mine != cfg:
-                raise ValueError("the DecoderLM was built for another config")
-            if device is not None and resolve_device(device) != params.device:
-                raise ValueError(
-                    f"the DecoderLM lives on {params.device}, not {device}"
-                )
-            return params
-        if not isinstance(params, Mapping):
-            raise TypeError(
-                "params must be a flax param tree (nested numpy arrays) "
-                "or a DecoderLM"
-            )
-        return load_flax_params(DecoderLM(cfg, device=device), params)
 
     # -- requests ----------------------------------------------------------
 
@@ -279,13 +286,14 @@ class ContinuousBatcher:
                 f"prompt + max_new_tokens = {total} exceeds cache_len "
                 f"{self.cache_len}",
             )
-        need = self.pool.blocks_needed(len(prompt), max_new_tokens)
-        if need > self.pool_blocks - 1:
-            raise self._reject(
-                "pool_overflow",
-                f"request needs {need} cache blocks but the pool holds "
-                f"{self.pool_blocks - 1} allocatable blocks",
-            )
+        if self.paged:
+            need = self.pool.blocks_needed(len(prompt), max_new_tokens)
+            if need > self.pool_blocks - 1:
+                raise self._reject(
+                    "pool_overflow",
+                    f"request needs {need} cache blocks but the pool "
+                    f"holds {self.pool_blocks - 1} allocatable blocks",
+                )
         rid = self._next_rid
         self._next_rid += 1
         req = _Request(
@@ -310,7 +318,10 @@ class ContinuousBatcher:
         PREVIOUS chunk's tokens (its host copy overlaps the chunk just
         dispatched). True while work remains."""
         t0 = time.monotonic()
-        self._admit_paged()
+        if self.paged:
+            self._admit_paged()
+        else:
+            self._admit_dense()
         self.obs.stall.inc(time.monotonic() - t0)
         has_live = any(r is not None for r in self._slot_req) or bool(
             self._prefilling
@@ -403,10 +414,32 @@ class ContinuousBatcher:
         item = torch.empty((), dtype=c.kv_storage_dtype).element_size()
         return c.num_layers * 2 * c.kv_heads * c.head_dim * item
 
+    def _kv_backing_bytes(self) -> int:
+        """Cache bytes backing the resident tokens: paged, the allocated
+        blocks (shared prefix blocks once); dense, the whole slots x
+        cache_len allocation, however empty."""
+        if self.paged:
+            blocks = self.pool.blocks_allocated()
+            return blocks * PAGE_ROWS * self._kv_bytes_per_token()
+        return self.slots * self.cache_len * self._kv_bytes_per_token()
+
     def kv_stats(self) -> dict:
         per_tok = self._kv_bytes_per_token()
-        backing = self.pool_blocks * PAGE_ROWS * per_tok
+        backing = (
+            self.pool_blocks * PAGE_ROWS * per_tok if self.paged
+            else self._kv_backing_bytes()
+        )
         pool = self.pool
+        books = dict(
+            kv_pool_blocks=self.pool_blocks,
+            kv_blocks_in_use=pool.blocks_allocated(),
+            kv_blocks_free=len(pool.free_blocks),
+            kv_blocks_parked=pool.parked_count(),
+            kv_blocks_reserved=pool.reserved,
+        ) if self.paged else dict.fromkeys((
+            "kv_pool_blocks", "kv_blocks_in_use", "kv_blocks_free",
+            "kv_blocks_parked", "kv_blocks_reserved",
+        ))
         return {
             "kv_hbm_bytes_per_resident_token": self.obs.kv_ratio.value(),
             "kv_bytes_dispatch_acc": self.obs.kv_bytes.value(),
@@ -414,12 +447,8 @@ class ContinuousBatcher:
             "kv_bytes_per_token": per_tok,
             "kv_backing_bytes": backing,
             "kv_shard_backing_bytes": backing,  # one card: no sharding
-            "kv_pool_blocks": self.pool_blocks,
-            "kv_blocks_in_use": pool.blocks_allocated(),
-            "kv_blocks_free": len(pool.free_blocks),
-            "kv_blocks_parked": pool.parked_count(),
-            "kv_blocks_reserved": pool.reserved,
-            "paged": True,
+            **books,
+            "paged": self.paged,
             "admission_stall_s": round(self.obs.stall.value(), 6),
         }
 
@@ -429,7 +458,7 @@ class ContinuousBatcher:
         lookups = hits + misses
         saved = int(self.obs.prefix_saved.value())
         prompt_tokens = int(self.obs.prefix_prompt_tokens.value())
-        idx = self.pool.prefix
+        idx = self.pool.prefix if self.paged else None
         return {
             "enabled": idx is not None,
             "block_hits": hits,
@@ -447,6 +476,46 @@ class ContinuousBatcher:
         }
 
     # -- admission -------------------------------------------------------------
+
+    def _bucket_for(self, prompt_len: int) -> int:
+        """Dense-mode prefill bucket: `prompt_bucket` when it fits, else
+        the smallest power of two that does (capped at the cache width):
+        prompt lengths share program shapes, and long prompts are served
+        instead of rejected."""
+        if prompt_len <= self.prompt_bucket:
+            return self.prompt_bucket
+        bucket = 1 << (prompt_len - 1).bit_length()
+        return min(max(bucket, self.prompt_bucket), self.cache_len)
+
+    def _admit_dense(self) -> None:
+        """Blocking admission (dense mode): every free slot takes the next
+        pending request, prefilled alone at its bucket into the slot's
+        rows; its first token is sampled on the device and reaches the
+        host as column 0 of the next chunk."""
+        for s in range(self.slots):
+            if self._slot_req[s] is not None or not self._pending:
+                continue
+            req = self._pending.popleft()
+            true_len = len(req.prompt)
+            padded = np.zeros((1, self._bucket_for(true_len)), np.int64)
+            padded[0, :true_len] = req.prompt
+            dev = self.device
+            knobs = {
+                name: to_device(np.asarray([value], dtype), dev)
+                for name, value, dtype in (
+                    ("temp", req.temperature, np.float32),
+                    ("topk", req.top_k, np.int64),
+                    ("topp", req.top_p, np.float32),
+                    ("seed", req.seed, np.int64),
+                )
+            }
+            admit_dense(
+                self.model, self._state, s, to_device(padded, dev), true_len,
+                knobs,
+            )
+            self._slot_req[s] = req
+            self._slot_new[s] = True
+            self._budget[s] = req.max_new_tokens
 
     def _admit_paged(self) -> None:
         """Assign pending requests to free slots and pool blocks and
@@ -509,16 +578,18 @@ class ContinuousBatcher:
     # -- dispatch --------------------------------------------------------------
 
     def _dispatch(self):
-        """Back the chunk's decode rows, snapshot the table, run the
-        decode chunk and the prefill lane, flip finished prefills live.
-        Returns the in-flight handle."""
-        self._ensure_decode_blocks(self.chunk_steps)
+        """Paged: back the chunk's decode rows, snapshot the table, run
+        the decode chunk and the prefill lane, flip finished prefills
+        live. Dense: run the decode chunk. Returns the in-flight handle."""
+        table, lane, finished = None, None, []
+        if self.paged:
+            self._ensure_decode_blocks(self.chunk_steps)
         self._record_kv_snapshot()
-        # int32, the kernels' index type: no per-layer conversion.
-        table = to_device(self.pool.table.astype(np.int32), self.device)
-        lane, finished = (
-            self._prepare_lane() if self._prefilling else (None, [])
-        )
+        if self.paged:
+            # int32, the kernels' index type: no per-layer conversion.
+            table = to_device(self.pool.table.astype(np.int32), self.device)
+            if self._prefilling:
+                lane, finished = self._prepare_lane()
         emitted = decode_chunk(self.model, self._state, table, self.chunk_steps)
         if lane is not None:
             run_lane(self.model, self._state, lane)
@@ -648,9 +719,7 @@ class ContinuousBatcher:
         resident += sum(p.consumed for p in self._prefilling)
         if resident <= 0:
             return
-        backing = (
-            self.pool.blocks_allocated() * PAGE_ROWS * self._kv_bytes_per_token()
-        )
+        backing = self._kv_backing_bytes()
         self.obs.kv_ratio.set(round(backing / resident, 1))
         self.obs.kv_bytes.inc(float(backing))
         self.obs.kv_resident.inc(resident)
@@ -701,5 +770,7 @@ class ContinuousBatcher:
         (refcount 0 parks the block) and park its table row on the
         scratch block. The chunk in flight still writes the old blocks
         at the dead sequence's tail positions — harmless: a reused block
-        is rewritten before any of its positions become visible."""
-        self.pool.release_slot(s)
+        is rewritten before any of its positions become visible. Dense
+        mode keeps no books: the next admission overwrites the slot."""
+        if self.paged:
+            self.pool.release_slot(s)

@@ -7,17 +7,23 @@ engine's semantics (`walkai_nos_tpu/models/serve.py`):
 - `decode_chunk` is `_decode_scan`: every slot advances `chunk_steps`
   single-token steps, sampling each token, and the chunk returns
   [slots, 1 + chunk_steps] tokens whose column 0 is the chunk's input
-  token (how the host learns a newly live slot's first token).
+  token (how the host learns a newly live slot's first token). Paged:
+  through the block table; dense (no table): over the engine's ragged
+  `DenseCache`, whose per-slot index the forward advances.
 - `run_lane` is `target_lane`: the prefill lane's [P, W] prompt chunks,
   each row at its own start position through its own block table;
   rows that finish their prompt sample the slot's first token and
   write the slot's state.
+- `admit_dense` is the dense engine's `prefill` + `admit` programs: one
+  request's prompt, padded to its bucket, prefilled at batch 1 straight
+  into its slot's rows of the dense cache; the slot's index is set to
+  the true length and its first token sampled.
 
 Shapes are fixed by `slots`, `prefill_lanes` and `prefill_chunk` (the
 lane always runs all `prefill_lanes` rows over the full table width),
-so a row's output never depends on what shares the dispatch, even
-through stock GEMMs. The paged pools are updated in place (JAX donates
-them).
+or by the prompt bucket (dense admission), so a row's output never
+depends on what shares the dispatch, even through stock GEMMs. The
+caches are updated in place (JAX donates them).
 
 Sampling is counter-based (`models/decode.py`): slot s draws token n of
 its request with (seed, n); the lane draws the first token with n = 0.
@@ -31,9 +37,9 @@ import numpy as np
 import torch
 
 from walkai_nos_tpu_torch.models.decode import sample_rows
-from walkai_nos_tpu_torch.models.lm import DecoderLM, PagedCache
+from walkai_nos_tpu_torch.models.lm import DecoderLM, DenseCache, PagedCache
 
-__all__ = ["SlotState", "decode_chunk", "run_lane", "to_device"]
+__all__ = ["SlotState", "admit_dense", "decode_chunk", "run_lane", "to_device"]
 
 
 @dataclass
@@ -75,10 +81,11 @@ class _Prefill:
 
 @dataclass
 class SlotState:
-    """Per-slot device state: the pools, the shared cache index, the
-    next input token, the sampling knobs, and the draw counter."""
+    """Per-slot device state: the cache, the per-slot cache index, the
+    next input token, the sampling knobs, and the draw counter. With a
+    `DenseCache` the index IS the cache's own (one tensor)."""
 
-    cache: PagedCache
+    cache: PagedCache | DenseCache
     index: torch.Tensor     # [slots] int32 cache index (write head)
     tokens: torch.Tensor    # [slots] int64 next input token
     temps: torch.Tensor     # [slots] f32
@@ -88,12 +95,16 @@ class SlotState:
     counters: torch.Tensor  # [slots] int64 tokens drawn so far
 
     @classmethod
-    def zeros(cls, cache: PagedCache, slots: int, device) -> "SlotState":
+    def zeros(
+        cls, cache: PagedCache | DenseCache, slots: int, device
+    ) -> "SlotState":
         def z(dtype):
             return torch.zeros(slots, dtype=dtype, device=device)
 
+        dense = isinstance(cache, DenseCache)
+        index = cache.index if dense else z(torch.int32)
         return cls(
-            cache, z(torch.int32), z(torch.int64), z(torch.float32),
+            cache, index, z(torch.int64), z(torch.float32),
             z(torch.int64), torch.ones(slots, device=device), z(torch.int64),
             z(torch.int64),
         )
@@ -113,13 +124,17 @@ def decode_chunk(
     model: DecoderLM, st: SlotState, table: torch.Tensor, chunk_steps: int
 ) -> torch.Tensor:
     """Advance every slot `chunk_steps` tokens; returns [slots,
-    1 + chunk_steps] int64 tokens (column 0 = the chunk's input)."""
+    1 + chunk_steps] int64 tokens (column 0 = the chunk's input).
+    `table` None: the dense cache, which advances its own index."""
     first = st.tokens
     tok = first
     out = []
     for _ in range(chunk_steps):
-        logits = model(tok[:, None], st.cache, table, st.index)
-        st.index += 1
+        if table is None:
+            logits = model(tok[:, None], st.cache)
+        else:
+            logits = model(tok[:, None], st.cache, table, st.index)
+            st.index += 1
         tok = sample_rows(
             logits[:, -1].float(), st.temps, st.topks, st.topps,
             st.seeds, st.counters,
@@ -157,3 +172,30 @@ def run_lane(model: DecoderLM, st: SlotState, lane: dict) -> None:
     st.topps[slots] = lane["topp"][rows]
     st.seeds[slots] = seed
     st.counters[slots] = 1
+
+
+@torch.inference_mode()
+def admit_dense(
+    model: DecoderLM, st: SlotState, slot: int, prompt: torch.Tensor,
+    true_len: int, knobs: dict,
+) -> None:
+    """Prefill one request into `slot` of the dense engine. `prompt`:
+    [1, bucket] device tokens (the prompt padded to its bucket); the rows
+    land in the slot's rows of the cache (rows past the bucket keep what
+    they held: masked until rewritten, as every write precedes its
+    read). `knobs`: the request's `temp`/`topk`/`topp`/`seed` as
+    one-element device tensors. Sets the slot's index to the true length
+    (the padded rows are hidden until decoding overwrites them) and
+    samples its first token with counter 0 from the last TRUE position."""
+    logits = model(prompt, st.cache.row(slot))
+    first = sample_rows(
+        logits[:, true_len - 1].float(), knobs["temp"], knobs["topk"],
+        knobs["topp"], knobs["seed"], torch.zeros_like(knobs["seed"]),
+    )
+    st.index[slot] = true_len
+    st.tokens[slot] = first[0]
+    st.temps[slot] = knobs["temp"][0]
+    st.topks[slot] = knobs["topk"][0]
+    st.topps[slot] = knobs["topp"][0]
+    st.seeds[slot] = knobs["seed"][0]
+    st.counters[slot] = 1

@@ -28,6 +28,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_kernels_build")
 KERNEL_SOURCES = (
     "paged_attention", "qkv_rope", "flash_attention", "flash_attention_bwd",
+    "decode_attention",
 )
 
 _NVCC_FLAGS = (

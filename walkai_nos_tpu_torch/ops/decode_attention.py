@@ -1,16 +1,24 @@
-"""Decode attention over a paged KV cache: two CUDA kernels for Hopper
-and their plain PyTorch versions.
+"""Decode attention over a dense or a paged KV cache: three CUDA kernels
+for Hopper and their plain PyTorch versions.
 
 Port of `walkai_nos_tpu/ops/decode_attention.py` (the reference). The
-paged serving engine stores K/V in a SHARED pool of 128-row physical
-blocks per layer (`[num_blocks, kv_heads, PAGE_ROWS, head_dim]`); a
-per-slot block table maps logical cache block j of slot b to pool block
-`table[b, j]`. The decode step is memory-bound: each step re-reads every
-resident K/V byte once, and the projection weight once.
+dense cache (one-shot generation, speculative decoding, the dense
+serving engine) holds `[batch, kv_heads, cache_len, head_dim]` per
+layer. The paged serving engine stores K/V in a SHARED pool of 128-row
+physical blocks per layer (`[num_blocks, kv_heads, PAGE_ROWS,
+head_dim]`); a per-slot block table maps logical cache block j of slot b
+to pool block `table[b, j]`. The decode step is memory-bound: each step
+re-reads every resident K/V byte once, and the projection weight once.
 
-Two kernels carry the decode step (sources in `csrc/`, built by
+Three kernels carry the decode step (sources in `csrc/`, built by
 `ops/_build.py` at first use):
 
+- `decode_attention.cu` (K7) replaces the TPU kernel `_gqa_pallas`
+  (`_gqa_stream_kernel` -> `_stream_fold`): streamed attention over the
+  dense cache, GQA rows served from one K/V read per kv head, scalar or
+  per-row index read on the device, 1-8 query steps, tiles past the
+  index never read. It takes any cache length (the JAX wrapper falls
+  back to its reference when the length is not a multiple of 128).
 - `paged_attention.cu` (K1) replaces the TPU kernel `_paged_pallas`
   (`_paged_stream_kernel` -> `_stream_fold`): streamed paged attention
   through the block table, tail blocks never read, GQA rows served from
@@ -47,8 +55,10 @@ import torch
 
 __all__ = [
     "LAUNCHES",
+    "MAX_GROUP_ROWS",
     "MAX_KERNEL_STEPS",
     "PAGE_ROWS",
+    "decode_attention",
     "decode_attention_reference",
     "fused_qkv_paged_attention",
     "fused_qkv_paged_reference",
@@ -74,9 +84,13 @@ PAGE_ROWS = 128
 # chunks go through the gather + masked-attention path in models/lm.py.
 MAX_KERNEL_STEPS = 8
 
+# Query rows per kv head (group * steps) K7 holds in one CTA: TinyLlama's
+# group of 8 at MAX_KERNEL_STEPS.
+MAX_GROUP_ROWS = 64
+
 # Launch counts per kernel: each wrapper adds one where it launches its
 # kernel, and nowhere else.
-LAUNCHES = {"paged_attention": 0, "qkv_rope": 0}
+LAUNCHES = {"paged_attention": 0, "qkv_rope": 0, "decode_attention": 0}
 
 _INT8_TODO = (
     "int8 KV pools and int8 weights are not ported yet (ROADMAP: "
@@ -222,7 +236,8 @@ def split_qkv(qkv, index, *, num_heads, kv_heads, rope_theta=None):
     """Split a fused [batch, steps, (heads + 2 * kv_heads) * head_dim]
     projection at positions index .. index+steps-1 into q [batch, heads,
     steps, head_dim] and k, v [batch, kv_heads, steps, head_dim] ([q | k
-    | v] column blocks), rotating q and k when `rope_theta` is set."""
+    | v] column blocks), rotating q and k when `rope_theta` is set.
+    index: a [batch] tensor, or a 0-d tensor shared by every row."""
     bsz, steps, dout = qkv.shape
     hd = dout // (num_heads + 2 * kv_heads)
     d, kd = num_heads * hd, kv_heads * hd
@@ -230,10 +245,12 @@ def split_qkv(qkv, index, *, num_heads, kv_heads, rope_theta=None):
     k = qkv[..., d:d + kd].reshape(bsz, steps, kv_heads, hd).transpose(1, 2)
     v = qkv[..., d + kd:].reshape(bsz, steps, kv_heads, hd).transpose(1, 2)
     if rope_theta is not None:
-        pos = index.long()[:, None] + torch.arange(steps, device=qkv.device)
+        pos = index.long()[..., None] + torch.arange(steps, device=qkv.device)
         cos, sin = rope_tables(pos, hd, rope_theta)
-        q = rotate(q, cos[:, None], sin[:, None])
-        k = rotate(k, cos[:, None], sin[:, None])
+        if pos.dim() == 2:  # per-row positions: broadcast over heads
+            cos, sin = cos[:, None], sin[:, None]
+        q = rotate(q, cos, sin)
+        k = rotate(k, cos, sin)
     return q, k, v
 
 
@@ -342,6 +359,92 @@ def _split(units: int, cells: int, device: torch.device, quantum: int = 1):
     per = -(-units // min(target, units))
     per = -(-per // quantum) * quantum
     return per, -(-units // per)
+
+
+_TILE = 64  # K7's cache rows per streamed tile
+
+
+def _decode_attention_cuda(q, k, v, index):
+    """Launch K7 (split pass + combine). q [b, h, steps, hd]; k/v [b,
+    kv_heads, cache_len, hd]; index a [1] (shared) or [b] (per-row)
+    int32 tensor on the device."""
+    _require_cuda(q, k, v, index)
+    b, h, steps, hd = q.shape
+    kvh, cache_len = k.shape[1], k.shape[2]
+    if k.shape != (b, kvh, cache_len, hd) or v.shape != k.shape:
+        raise ValueError(
+            f"cache shapes {tuple(k.shape)} / {tuple(v.shape)} do not "
+            f"match q {tuple(q.shape)}"
+        )
+    if h % kvh != 0:
+        raise ValueError(f"heads {h} must be a multiple of kv_heads {kvh}")
+    if steps > MAX_KERNEL_STEPS or (h // kvh) * steps > MAX_GROUP_ROWS:
+        raise ValueError(
+            f"decode_attention takes steps <= {MAX_KERNEL_STEPS} and "
+            f"group * steps <= {MAX_GROUP_ROWS} query rows per kv head; "
+            f"got steps {steps}, group {h // kvh}"
+        )
+    if hd not in (64, 128):
+        raise ValueError(
+            f"decode_attention takes head_dim 64 or 128; got {hd}"
+        )
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q and the cache must share one dtype")
+    if not (k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("the K/V cache must be contiguous")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("the K/V cache must be 16-byte aligned")
+    per_row = index.dim() != 0
+    if per_row and tuple(index.shape) != (b,):
+        raise ValueError(
+            f"index must be 0-d or [batch={b}]; got {tuple(index.shape)}"
+        )
+    idx = index.reshape(-1).to(torch.int32).contiguous()
+    q = q.contiguous()
+    rows = (h // kvh) * steps
+    tps, nsplit = _split(-(-cache_len // _TILE), b * kvh, q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m_part = torch.empty(b, kvh, nsplit, rows, **f32)
+    l_part = torch.empty(b, kvh, nsplit, rows, **f32)
+    acc_part = torch.empty(b, kvh, nsplit, rows, hd, **f32)
+    out = torch.empty_like(q)
+    fn = _kernel_fn(
+        "decode_attention", "decode_attention_" + _suffix(q),
+        [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P],
+    )
+    code = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
+        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+        out.data_ptr(), b, h, kvh, steps, hd, cache_len, tps, nsplit,
+        int(per_row), hd ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _check(code, "decode_attention")
+    LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def decode_attention(q, k, v, index) -> torch.Tensor:
+    """Decode attention over a dense cache (K7 on a CUDA tensor, the plain
+    `decode_attention_reference` on a CPU tensor).
+
+    q: [batch, heads, head_dim] or [batch, heads, steps, head_dim];
+    k/v: [batch, kv_heads, cache_len, head_dim] with kv_heads dividing
+    heads; index: an int, a 0-d tensor (every row at one position) or a
+    [batch] tensor (ragged rows), read by the kernel on the device.
+    Query step r sees positions p <= index + r. Any cache_len; on the GPU
+    steps <= MAX_KERNEL_STEPS, group * steps <= MAX_GROUP_ROWS, head_dim
+    64 or 128, bf16 or f32 (a shape outside these raises, naming the
+    limit)."""
+    if q.device.type == "cpu":
+        return decode_attention_reference(q, k, v, index)
+    if not torch.is_tensor(index):
+        index = torch.tensor(int(index), dtype=torch.int32, device=q.device)
+    single = q.dim() == 3
+    out = _decode_attention_cuda(
+        q[:, :, None, :] if single else q, k, v, index
+    )
+    return out[:, :, 0] if single else out
 
 
 def _paged_attention_cuda(q, k_pool, v_pool, table, index, k_new, v_new):
