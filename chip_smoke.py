@@ -37,6 +37,17 @@ the CUDA toolkit (`nvcc`). It:
    the same greedy tokens from all three entry points;
 6. serves 2 requests through the unfused route (`fused_qkv=False`, 4
    layers), which runs K1 without fresh-row injection and no K2;
+6a. holds the int8 arms of K1 (int8 pools + f32 scale pools) and K2
+   (int8 weight + scale row) and their fused composition against their
+   plain versions at the LM serving shapes (bf16 and f32), the "sim" arms
+   (unit scales) bitwise against the unquantized arms, times them beside
+   their bounds, plain versions and library yardsticks, and times the
+   int8 `QuantDense` projections of one layer beside bf16 `Dense`;
+6b. serves the 8 requests again with int8 KV and int8 weights (the bf16
+   model's draws quantized): both int8 arms launched, 11,968 KV bytes per
+   token, the share of tokens equal to the bf16 engine's;
+6c. in bf16 at 4 layers, "int8-sim" KV and weights give the unquantized
+   engine's tokens on the fused route and on the unfused one;
 7. holds K3 (packed ViT attention), K4 (flash forward + lse), K5 (dq)
    and K6 (dk/dv) against their plain versions at the ViT's shapes (batch
    32, 296 tokens, 6 heads of 64) in bf16 and f32, plus a causal sq != sk
@@ -330,6 +341,206 @@ def kernel_phase(da, seed: int) -> tuple[list, list]:
     return checks, rows
 
 
+def int8_kernel_phase(da, lm_mod, seed: int) -> tuple[list, list, dict]:
+    """The int8 arms of K1 (int8 pools + f32 scale pools) and K2 (int8
+    weight + scale row) and their fused composition against their plain
+    versions at the serving shapes of TinyLlama-1.1B (as `kernel_phase`,
+    with pools and weight quantized from bf16 draws), q/x in bf16 and f32;
+    the "sim" arms (full-precision pools and weight with unit scales)
+    bitwise against the unquantized arms; times of kernel, plain version
+    and library yardstick; and the per-layer cost of the four `QuantDense`
+    projections the fused route runs (out_proj, gate, fc1, fc2) beside
+    bf16 `Dense`. Returns (checks, timing rows, QuantDense times)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 30)
+    b, h, kvh, hd, dm, mlp = 8, 32, 4, 64, 2048, 5632
+    nlog, nb = 16, 129
+    dout = dm + 2 * kvh * hd
+    bf = torch.bfloat16
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(bf)
+
+    table = (torch.randperm(nb - 1, generator=gen, device=dev) + 1)[
+        : b * nlog].reshape(b, nlog).to(torch.int32)
+    ragged = torch.tensor([0, 127, 128, 500, 1023, 1500, 2040, 2100],
+                          device=dev, dtype=torch.int32)
+    steady = torch.full((b,), 1024, device=dev, dtype=torch.int32)
+    pools, wts = [], []
+    for _ in range(ROTATE):
+        kq, ks = da.quantize_kv_rows(rnd(nb, kvh, 128, hd), "int8")
+        vq, vs = da.quantize_kv_rows(rnd(nb, kvh, 128, hd), "int8")
+        pools.append((kq, vq, ks, vs))
+        wts.append(lm_mod.quantize_kernel(rnd(dm, dout, std=0.02)))
+    checks, rows = [], []
+
+    def check(kernel, steps, index, dtype, got, want):
+        e, ratio = _err(got, want, dtype)
+        checks.append({
+            "kernel": kernel, "steps": steps, "index": index,
+            "dtype": str(dtype).split(".")[-1], "max_abs_err": e,
+            "err_over_tol": ratio,
+            "tol": "%g * max|plain| per slot + %g" % TOL[dtype],
+        })
+        if not ratio <= 1.0:
+            _fail(f"{kernel} {dtype} steps={steps} {index}: max err {e}, "
+                  f"{ratio:.3g}x its per-slot tolerance")
+
+    kq, vq, ks, vs = pools[0]
+    wq, wsc = wts[0]
+    rope = dict(rope_theta=10000.0)
+    for steps in (1, 8):
+        q = rnd(b, h, steps, hd)
+        x = rnd(b, steps, dm)
+        for dtype in (bf, torch.float32):
+            q_, x_ = q.to(dtype), x.to(dtype)
+            for name, idx in (("ragged", ragged), ("steady", steady)):
+                sc = dict(k_scales=ks, v_scales=vs)
+                check("paged_attention_int8", steps, name, dtype,
+                      [da.paged_decode_attention(q_, kq, vq, table, idx, **sc)],
+                      [da.paged_decode_attention_reference(
+                          q_, kq, vq, table, idx, ks, vs)])
+                proj = dict(num_heads=h, kv_heads=kvh, w_scale=wsc, **rope)
+                check("qkv_rope_int8", steps, name, dtype,
+                      da.qkv_rope_projection(x_, wq, None, idx, **proj),
+                      da.qkv_rope_reference(x_, wq, None, idx, **proj))
+                fz = dict(num_heads=h, w_scale=wsc, **sc, **rope)
+                check("fused_int8", steps, name, dtype,
+                      da.fused_qkv_paged_attention(
+                          x_, wq, None, kq, vq, table, idx, **fz),
+                      da.fused_qkv_paged_reference(
+                          x_, wq, None, kq, vq, table, idx, **fz))
+        # The sim arms: bf16 pools and weight with unit scales, bitwise.
+        kp, vp = (rnd(nb, kvh, 128, hd) for _ in range(2))
+        w = rnd(dm, dout, std=0.02)
+        ones = torch.ones(nb, kvh, 128, device=dev)
+        ones_w = torch.ones(dout, device=dev)
+        same = torch.equal(
+            da.paged_decode_attention(q, kp, vp, table, ragged),
+            da.paged_decode_attention(q, kp, vp, table, ragged,
+                                      k_scales=ones, v_scales=ones),
+        ) and all(
+            torch.equal(a, s) for a, s in zip(
+                da.fused_qkv_paged_attention(
+                    x, w, None, kp, vp, table, ragged, num_heads=h, **rope),
+                da.fused_qkv_paged_attention(
+                    x, w, None, kp, vp, table, ragged, num_heads=h,
+                    w_scale=ones_w, k_scales=ones, v_scales=ones, **rope),
+            )
+        )
+        checks.append({"kernel": "paged_attention+qkv_rope sim arms",
+                       "steps": steps, "dtype": "bfloat16",
+                       "bitwise_equal_unquantized": same})
+        if not same:
+            _fail(f"the sim arms differ from the unquantized arms, steps={steps}")
+        torch.cuda.synchronize()
+
+        # Timing at the steady index (8 slots x ~1024 resident tokens).
+        idx = steady
+        vis = float(torch.clamp(idx.long() + steps, max=nlog * 128).sum())
+        kv_bytes = vis * kvh * (hd * 1 + 4) * 2  # int8 rows + f32 scales
+        qo_bytes = 2 * b * h * steps * hd * 2
+        tbl_bytes = b * nlog * 4 + b * 4
+        k1_flops = vis * h * steps * hd * 4
+        k2_bytes = (b * steps * dm * 2 + dm * dout * 1 + dout * 4
+                    + b * steps * hd * 4 * 2 + b * steps * dout * 2)
+        k2_flops = 2.0 * b * steps * dm * dout
+        pos = torch.arange(nlog * 128, device=dev)
+        qpos = idx.long()[:, None] + torch.arange(steps, device=dev)
+        mask = (pos[None, None] <= qpos[..., None])[:, None]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def k1(i):
+            kq_, vq_, ks_, vs_ = pools[i % ROTATE]
+            da.paged_decode_attention(q, kq_, vq_, table, idx, k_scales=ks_,
+                                      v_scales=vs_)
+
+        def k1_plain(i):
+            kq_, vq_, ks_, vs_ = pools[i % ROTATE]
+            da.paged_decode_attention_reference(q, kq_, vq_, table, idx, ks_, vs_)
+
+        def k1_lib(i):
+            # SDPA over the dequantized views, the dequantize counted.
+            kq_, vq_, ks_, vs_ = pools[i % ROTATE]
+            sdpa(q, da.dequantize_gathered(kq_, ks_, table, bf),
+                 da.dequantize_gathered(vq_, vs_, table, bf),
+                 attn_mask=mask, enable_gqa=True)
+
+        def k2(i):
+            wq_, ws_ = wts[i % ROTATE]
+            da.qkv_rope_projection(x, wq_, None, idx, num_heads=h, kv_heads=kvh,
+                                   w_scale=ws_, **rope)
+
+        def k2_plain(i):
+            wq_, ws_ = wts[i % ROTATE]
+            da.qkv_rope_reference(x, wq_, None, idx, num_heads=h, kv_heads=kvh,
+                                  w_scale=ws_, **rope)
+
+        def k2_lib(i):
+            # The conversion counted, then cuBLAS, the scale, split, rotary.
+            wq_, ws_ = wts[i % ROTATE]
+            y = (torch.matmul(x, wq_.to(bf)).float() * ws_).to(bf)
+            da.split_qkv(y, idx, num_heads=h, kv_heads=kvh, **rope)
+
+        def fused(i):
+            kq_, vq_, ks_, vs_ = pools[i % ROTATE]
+            wq_, ws_ = wts[i % ROTATE]
+            da.fused_qkv_paged_attention(
+                x, wq_, None, kq_, vq_, table, idx, num_heads=h, w_scale=ws_,
+                k_scales=ks_, v_scales=vs_, **rope)
+
+        def fused_plain(i):
+            kq_, vq_, ks_, vs_ = pools[i % ROTATE]
+            wq_, ws_ = wts[i % ROTATE]
+            da.fused_qkv_paged_reference(
+                x, wq_, None, kq_, vq_, table, idx, num_heads=h, w_scale=ws_,
+                k_scales=ks_, v_scales=vs_, **rope)
+
+        for name, fn, plain, lib, nbytes, flops in (
+            ("paged_attention_int8", k1, k1_plain, k1_lib,
+             kv_bytes + qo_bytes + tbl_bytes, k1_flops),
+            ("qkv_rope_int8", k2, k2_plain, k2_lib, k2_bytes, k2_flops),
+            ("fused_int8", fused, fused_plain, None,
+             k2_bytes + kv_bytes + tbl_bytes, k1_flops + k2_flops),
+        ):
+            bound_ms, bound_by = _bound(nbytes, flops)
+            rows.append({
+                "kernel": name, "steps": steps,
+                "ms": _timed(fn, 20),
+                "plain_ms": _timed(plain, 5),
+                "library_ms": None if lib is None else _timed(lib, 20),
+                "host_call_ms": _host_timed(fn, 50),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bytes": nbytes, "flops": flops,
+            })
+
+    # QuantDense per layer, at the decode step's 8 rows: the four
+    # projections of the fused route, int8 (f32 copy + cuBLAS f32 product
+    # per call) beside bf16 Dense.
+    x = rnd(b, 1, dm)
+    xm = rnd(b, 1, mlp)
+    layers = {}
+    for kind in ("int8", "bf16"):
+        mods = []
+        for d_in, d_out in ((dm, dm), (dm, mlp), (dm, mlp), (mlp, dm)):
+            kw = dict(bias=False, dtype=bf, device=dev, gen=gen)
+            mods.append(lm_mod.QuantDense(d_in, d_out, sim=False, **kw)
+                        if kind == "int8" else lm_mod.Dense(d_in, d_out, **kw))
+
+        def layer(i, mods=mods):
+            for m in mods:
+                m(xm if m.kernel.shape[0] == mlp else x)
+
+        layers[kind] = _timed(layer, 10)
+    quant_dense = {
+        "shape": f"8 rows; out_proj {dm}x{dm}, gate/fc1 {dm}x{mlp}, fc2 {mlp}x{dm}",
+        "int8_ms_per_layer": layers["int8"], "bf16_ms_per_layer": layers["bf16"],
+    }
+    del pools, wts
+    torch.cuda.empty_cache()
+    return checks, rows, quant_dense
+
+
 def serving_phase(ContinuousBatcher, LMConfig, DecoderLM, da, seed: int) -> dict:
     cfg = LMConfig(
         vocab_size=32000, hidden_dim=2048, num_layers=22, num_heads=32,
@@ -415,7 +626,115 @@ def serving_phase(ContinuousBatcher, LMConfig, DecoderLM, da, seed: int) -> dict
         "_model": model,
         "_cfg": cfg,
         "_prompts": prompts,
+        "_tokens": [records[r]["tokens"] for r in rids],
     }
+
+
+def int8_serving_phase(ContinuousBatcher, DecoderLM, da, cfg, prompts,
+                       bf16_tokens, seed: int) -> dict:
+    """The paged engine with int8 KV and int8 weights at TinyLlama-1.1B
+    width: the weights are the bf16 serving model's draws (same seed),
+    quantized per output channel; 8 slots, cache_len 2048, the serving
+    phase's 8 requests x 32 new tokens. Checks every request, launches of
+    both int8 arms and of neither full-precision arm, and 11,968 KV bytes
+    per token; reports the share of tokens equal to the bf16 engine's."""
+    import dataclasses
+
+    cfg8 = dataclasses.replace(cfg, kv_dtype="int8", w_dtype="int8")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = DecoderLM(cfg8, device="cuda", seed=seed)
+    new = 32
+    engine = ContinuousBatcher(cfg8, model, slots=8, cache_len=2048,
+                               prefill_chunk=64, prefill_lanes=4)
+    engine.warm()
+    torch.cuda.synchronize()
+    da.reset_launch_counts()
+    d0 = engine.obs.dispatches.value()
+    t0 = time.monotonic()
+    rids = [engine.submit(p, max_new_tokens=new) for p in prompts]
+    records = {}
+    while engine.has_work:
+        engine.step()
+        records.update(engine.drain_done_records())
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(da.LAUNCHES)
+    dispatches = int(engine.obs.dispatches.value() - d0)
+    tokens = [records[r]["tokens"] for r in rids]
+    if any(len(t) != new for t in tokens):
+        _fail("int8 serving: a request came back short")
+    if min(min(t) for t in tokens) < 0 or max(max(t) for t in tokens) >= cfg.vocab_size:
+        _fail("int8 serving: a token outside the vocabulary")
+    for name in ("paged_attention_int8", "qkv_rope_int8"):
+        if launches[name] <= 0:
+            _fail(f"int8 serving: {name} was not launched: {launches}")
+    if launches["paged_attention"] or launches["qkv_rope"] or launches["decode_attention"]:
+        _fail(f"int8 serving launched a full-precision arm: {launches}")
+    stats = engine.quant_stats()
+    if stats["kv_bytes_per_token"] != 11968:
+        _fail(f"int8 serving: {stats['kv_bytes_per_token']} KV bytes per token")
+    decode_steps = max(1, dispatches * engine.chunk_steps)
+    profile = profile_window(engine, prompts[:4], new, "int8_profile.txt")
+    agree = sum(a == b for t, u in zip(tokens, bf16_tokens) for a, b in zip(t, u))
+    ttft = sorted(records[r]["ttft_s"] for r in rids)
+    out = {
+        "model": "TinyLlama-1.1B widths, 22 layers, the bf16 phase's random "
+                 "weights quantized to int8, int8 KV",
+        "requests": len(rids), "new_tokens_each": new, "wall_s": wall,
+        "decode_tokens_per_s": new * len(rids) / wall,
+        "ttft_p50_s": ttft[len(ttft) // 2], "dispatches": dispatches,
+        "step_ms": wall / decode_steps * 1e3,
+        "launches": launches,
+        "launches_per_decode_step": {
+            k: v / decode_steps for k, v in launches.items()
+        },
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "quant": stats,
+        "kv_backing_bytes": engine.kv_stats()["kv_backing_bytes"],
+        "tokens_equal_to_bf16_share": agree / (new * len(rids)),
+        "profile": profile,
+    }
+    del model, engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def sim_exactness_phase(ContinuousBatcher, DecoderLM, da, cfg, prompts,
+                        seed: int) -> dict:
+    """bf16 at TinyLlama width, 4 layers: "int8-sim" KV and weights run
+    every scale path (K1 with scale pools, K2 with a unit scale row,
+    QuantDense, the quantizing scatter) and must give the unquantized
+    engine's tokens, on the fused route and on the unfused one."""
+    import dataclasses
+
+    new = 16
+    picks = [prompts[i] for i in (1, 3, 6)]
+    out = {"layers": 4, "dtype": "bfloat16", "requests": len(picks),
+           "new_tokens_each": new}
+    for fused in (True, False):
+        runs = {}
+        for q in ("model", "int8-sim"):
+            c = dataclasses.replace(cfg, num_layers=4, fused_qkv=fused,
+                                    kv_dtype=q, w_dtype=q)
+            model = DecoderLM(c, device="cuda", seed=seed + 6)
+            engine = ContinuousBatcher(c, model, slots=4, cache_len=1024)
+            da.reset_launch_counts()
+            rids = [engine.submit(p, max_new_tokens=new) for p in picks]
+            served = engine.run()
+            torch.cuda.synchronize()
+            runs[q] = ([served[r] for r in rids], dict(da.LAUNCHES))
+            del model, engine
+        route = "fused" if fused else "unfused"
+        if runs["model"][0] != runs["int8-sim"][0]:
+            _fail(f"int8-sim differs from the unquantized engine on the "
+                  f"{route} route: {runs['int8-sim'][0]} vs {runs['model'][0]}")
+        launches = runs["int8-sim"][1]
+        if launches["paged_attention"] <= 0 or (launches["qkv_rope"] > 0) != fused:
+            _fail(f"int8-sim {route} route launched {launches}")
+        out[route] = {"identical": True, "sim_launches": launches}
+    torch.cuda.empty_cache()
+    return out
 
 
 def dense_kernel_phase(da, seed: int) -> tuple[list, list]:
@@ -659,7 +978,7 @@ def exactness_phase(ContinuousBatcher, make_generate_fn, spec_mod, lm_mod, da,
             "new_tokens_each": new, "identical": True, "launches": launches}
 
 
-def profile_window(engine, prompts, new: int) -> dict:
+def profile_window(engine, prompts, new: int, table_name: str = "profile.txt") -> dict:
     """Serve a few requests under torch.profiler: device-busy share of
     the window and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -673,7 +992,7 @@ def profile_window(engine, prompts, new: int) -> dict:
         wall = time.monotonic() - t0
     if any(len(out[r]) != new for r in rids):
         _fail("profiled window: a request came back short")
-    return _profile_summary(prof, wall, "profile.txt")
+    return _profile_summary(prof, wall, table_name)
 
 
 def _device_rows(prof) -> list:
@@ -1168,8 +1487,9 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     checks, rows = kernel_phase(da, args.seed)
+    qchecks, qrows, quant_dense = int8_kernel_phase(da, lm_mod, args.seed)
     dchecks, drows = dense_kernel_phase(da, args.seed)
-    checks, rows = checks + dchecks, rows + drows
+    checks, rows = checks + qchecks + dchecks, rows + qrows + drows
     for c in checks:
         print(json.dumps({"check": c}), flush=True)
     for r in rows:
@@ -1178,6 +1498,7 @@ def main() -> int:
     serve = serving_phase(ContinuousBatcher, LMConfig, DecoderLM, da, args.seed)
     model, cfg = serve.pop("_model"), serve.pop("_cfg")
     serve_prompts = serve.pop("_prompts")
+    serve_tokens = serve.pop("_tokens")
     print(json.dumps({"serving": serve}), flush=True)
     generate = generate_phase(make_generate_fn, da, model, cfg, args.seed)
     gen_prompts = generate.pop("_prompts")
@@ -1195,6 +1516,13 @@ def main() -> int:
     print(json.dumps({"exactness_f32": exact}), flush=True)
     unfused = unfused_phase(ContinuousBatcher, DecoderLM, da, cfg, args.seed)
     print(json.dumps({"unfused": unfused}), flush=True)
+    int8_serve = int8_serving_phase(ContinuousBatcher, DecoderLM, da, cfg,
+                                    serve_prompts, serve_tokens, args.seed)
+    int8_serve["quant_dense"] = quant_dense
+    print(json.dumps({"int8_serving": int8_serve}), flush=True)
+    sim_exact = sim_exactness_phase(ContinuousBatcher, DecoderLM, da, cfg,
+                                    serve_prompts, args.seed)
+    print(json.dumps({"sim_exactness": sim_exact}), flush=True)
     torch.cuda.empty_cache()
 
     vchecks, vrows = attention_kernel_phase(fa, args.seed)
@@ -1214,16 +1542,21 @@ def main() -> int:
         "qkv_rope": "walkai_nos_tpu/ops/decode_attention.py:1006",
     }
     kernels = []
-    for name in ("paged_attention", "qkv_rope"):
+    for name, source, launched in (
+        ("paged_attention", "paged_attention", serve["launches"]),
+        ("qkv_rope", "qkv_rope", serve["launches"]),
+        ("paged_attention_int8", "paged_attention", int8_serve["launches"]),
+        ("qkv_rope_int8", "qkv_rope", int8_serve["launches"]),
+    ):
         t = next(r for r in rows if r["kernel"] == name and r["steps"] == 1)
         err = max(
             c["max_abs_err"] for c in checks
             if c["kernel"] == name and c["dtype"] == "bfloat16"
         )
         kernels.append({
-            "name": name, "route": "cuda", "source": f"{src}{name}.cu",
-            "replaces": replaces[name],
-            "launches": serve["launches"][name],
+            "name": name, "route": "cuda", "source": f"{src}{source}.cu",
+            "replaces": replaces[source],
+            "launches": launched[name],
             "max_abs_err": err,
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1271,7 +1604,8 @@ def main() -> int:
             "card": smi, "checks": checks + vchecks, "timing": rows + vrows,
             "serving": serve, "generate": generate, "speculative": speculative,
             "dense_serving": dense_serve, "exactness_f32": exact,
-            "unfused": unfused, "vit_serving": vit_serve,
+            "unfused": unfused, "int8_serving": int8_serve,
+            "sim_exactness": sim_exact, "vit_serving": vit_serve,
             "vit_training": vit_train, "kernels": kernels,
         }, f, indent=1)
     print(smi, flush=True)

@@ -201,6 +201,197 @@ def test_decoder_fused_route_matches_unfused(cuda):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
+# -- the int8 arms of K1 and K2 ----------------------------------------------
+
+
+def _int8_case(dev, dtype, *, kvh=2, steps=4, h=8, seed=0, park=True):
+    """`_case` with int8 pools (+ scale pools) quantized from its pools,
+    an int8 weight (+ scale row), and with `park` slot 3's table parked
+    on the scratch block 0 (whose rows and scales are zero). A parked
+    slot's injected rows are garbage by construction (the engine never
+    commits them), and a plain scatter into block 0 would show them at
+    every logical block, so the injection checks leave it unparked."""
+    c = _case(dev, dtype, kvh=kvh, steps=steps, h=h, seed=seed)
+    c["kq"], c["ks"] = da.quantize_kv_rows(c["kp"], "int8")
+    c["vq"], c["vs"] = da.quantize_kv_rows(c["vp"], "int8")
+    nb = c["kp"].shape[0]
+    for name in ("kq", "vq"):
+        c[name][0] = 0
+    for name in ("ks", "vs"):
+        c[name][0] = 0
+    if park:
+        c["table"][3] = 0
+    c["wq"], c["ws"] = tlm.quantize_kernel(c["w"])
+    c["ones"] = torch.ones(nb, kvh, PAGE, device=dev)
+    return c
+
+
+def _dequantized(c, dtype, inject):
+    """The plain semantics of K1's int8 arm: the pools dequantized to
+    q's dtype, and with `inject` the fresh rows written at full precision
+    (dropped past capacity)."""
+    kd = (c["kq"].float() * c["ks"][..., None]).to(dtype)
+    vd = (c["vq"].float() * c["vs"][..., None]).to(dtype)
+    if inject:
+        da.scatter_paged_rows(kd, vd, c["kn"], c["vn"], c["table"], c["index"])
+    return kd, vd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("steps", [1, 5])
+@pytest.mark.parametrize("kvh", [2, 8])  # GQA (8 heads on 2) and MHA
+@pytest.mark.parametrize("inject", [False, True])
+def test_paged_attention_int8_matches_plain(cuda, dtype, steps, kvh, inject):
+    """Ragged indices (block edge, a partial last block, past capacity)
+    and a slot parked on block 0."""
+    c = _int8_case(cuda, dtype, kvh=kvh, steps=steps, park=not inject)
+    before = dict(da.LAUNCHES)
+    got = da._paged_attention_cuda(
+        c["q"], c["kq"], c["vq"], c["table"], c["index"],
+        c["kn"] if inject else None, c["vn"] if inject else None,
+        c["ks"], c["vs"],
+    )
+    assert da.LAUNCHES["paged_attention_int8"] == before["paged_attention_int8"] + 1
+    assert da.LAUNCHES["paged_attention"] == before["paged_attention"]
+    kd, vd = _dequantized(c, dtype, inject)
+    want = da.paged_decode_attention_reference(
+        c["q"], kd, vd, c["table"], c["index"]
+    )
+    _close(got, want, dtype)
+    if not inject:
+        plain = da.paged_decode_attention_reference(
+            c["q"], c["kq"], c["vq"], c["table"], c["index"], c["ks"], c["vs"]
+        )
+        _close(got, plain, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", [False, True])
+def test_qkv_rope_and_fused_int8_match_plain(cuda, dtype, bias):
+    c = _int8_case(cuda, dtype, steps=4)
+    b = c["bias"] if bias else None
+    before = dict(da.LAUNCHES)
+    got = da.qkv_rope_projection(
+        c["x"], c["wq"], b, c["index"], num_heads=8, kv_heads=2,
+        rope_theta=10000.0, w_scale=c["ws"],
+    )
+    assert da.LAUNCHES["qkv_rope_int8"] == before["qkv_rope_int8"] + 1
+    assert da.LAUNCHES["qkv_rope"] == before["qkv_rope"]
+    want = da.qkv_rope_reference(
+        c["x"], c["wq"], b, c["index"], num_heads=8, kv_heads=2,
+        rope_theta=10000.0, w_scale=c["ws"],
+    )
+    for a, w in zip(got, want):
+        _close(a, w, dtype)
+    kq0 = c["kq"].clone()
+    got = da.fused_qkv_paged_attention(
+        c["x"], c["wq"], b, c["kq"], c["vq"], c["table"], c["index"],
+        num_heads=8, rope_theta=10000.0, w_scale=c["ws"],
+        k_scales=c["ks"], v_scales=c["vs"],
+    )
+    assert torch.equal(c["kq"], kq0)  # the caller scatters, not the kernel
+    want = da.fused_qkv_paged_reference(
+        c["x"], c["wq"], b, c["kq"], c["vq"], c["table"], c["index"],
+        num_heads=8, rope_theta=10000.0, w_scale=c["ws"],
+        k_scales=c["ks"], v_scales=c["vs"],
+    )
+    for a, w in zip(got, want):
+        _close(a, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sim_arms_bitwise_equal_unquantized(cuda, dtype):
+    """Full-precision pools and weight with unit scales run the scaled
+    code of K1 and K2 and give the unquantized arms' bits."""
+    c = _int8_case(cuda, dtype, steps=5)
+    for kn, vn in ((None, None), (c["kn"], c["vn"])):
+        plain = da._paged_attention_cuda(
+            c["q"], c["kp"], c["vp"], c["table"], c["index"], kn, vn
+        )
+        sim = da._paged_attention_cuda(
+            c["q"], c["kp"], c["vp"], c["table"], c["index"], kn, vn,
+            c["ones"], c["ones"],
+        )
+        assert torch.equal(plain, sim)
+    ones_w = torch.ones(c["w"].shape[1], device=cuda)
+    for b in (None, c["bias"]):
+        args = (c["x"], c["w"], b, c["kp"], c["vp"], c["table"], c["index"])
+        plain = da.fused_qkv_paged_attention(
+            *args, num_heads=8, rope_theta=10000.0
+        )
+        sim = da.fused_qkv_paged_attention(
+            *args, num_heads=8, rope_theta=10000.0, w_scale=ones_w,
+            k_scales=c["ones"], v_scales=c["ones"],
+        )
+        for a, s in zip(plain, sim):
+            assert torch.equal(a, s)
+
+
+@pytest.mark.cuda
+def test_fresh_rows_ignore_poisoned_scales(cuda):
+    """Injected rows take scale 1.0: scale pools poisoned at every write
+    position leave K1's output unchanged, bit for bit."""
+    c = _int8_case(cuda, torch.bfloat16, steps=4, park=False)
+    args = (c["q"], c["kq"], c["vq"], c["table"], c["index"], c["kn"], c["vn"])
+    clean = da._paged_attention_cuda(*args, c["ks"], c["vs"])
+    ks, vs = c["ks"].clone(), c["vs"].clone()
+    pos = c["index"].long()[:, None] + torch.arange(4, device=cuda)
+    for s in range(pos.shape[0]):
+        for p in pos[s].tolist():
+            if p < c["table"].shape[1] * PAGE:
+                blk = int(c["table"][s, p // PAGE])
+                ks[blk, :, p % PAGE] = 1e6
+                vs[blk, :, p % PAGE] = 1e6
+    assert torch.equal(clean, da._paged_attention_cuda(*args, ks, vs))
+
+
+@pytest.mark.cuda
+def test_int8_without_scales_raises_on_cuda(cuda):
+    c = _int8_case(cuda, torch.bfloat16, steps=1)
+    with pytest.raises(ValueError, match="scale"):
+        da.paged_decode_attention(
+            c["q"], c["kq"], c["vq"], c["table"], c["index"]
+        )
+    with pytest.raises(ValueError, match="w_scale"):
+        da.qkv_rope_projection(
+            c["x"], c["wq"], None, c["index"], num_heads=8, kv_heads=2
+        )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+def test_decoder_sim_equals_unquantized_on_gpu(cuda, fused):
+    """DecoderLM in bf16 on the GPU: "int8-sim" KV and weights give the
+    unquantized model's logits bit for bit, on the fused route (K2 + K1
+    with their scales) and the unfused one."""
+    cfg = tlm.LMConfig(
+        vocab_size=128, hidden_dim=128, num_layers=2, num_heads=8,
+        num_kv_heads=2, mlp_dim=256, max_seq_len=512, dtype="bfloat16",
+        norm="rmsnorm", mlp="swiglu", rope=True, use_bias=False,
+        head_bias=False, ragged_decode=True, paged_decode=True,
+        paged_blocks=9, fused_qkv=fused,
+    )
+    table = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], device=cuda)
+    tokens = torch.randint(0, 128, (2, 70), device=cuda)
+    out = []
+    for q in ("model", "int8-sim"):
+        c = dataclasses.replace(cfg, kv_dtype=q, w_dtype=q)
+        model = tlm.DecoderLM(c, device=cuda, seed=7)
+        cache = tlm.PagedCache.zeros(c, cuda)
+        index = torch.tensor([0, 130], device=cuda)
+        with torch.inference_mode():
+            model(tokens[:, :64], cache, table, index)
+            index += 64
+            out.append(torch.cat([
+                model(tokens[:, 64 + i:65 + i], cache, table, index + i)
+                for i in range(6)
+            ], 1))
+    assert torch.equal(out[0], out[1])
+
+
 # -- K3-K6: full-sequence attention ------------------------------------------
 
 from walkai_nos_tpu_torch.ops import attention as fa  # noqa: E402

@@ -191,17 +191,21 @@ def test_qkv_rope_reference_matches_jax_fresh_rows(rope):
     np.testing.assert_allclose(v.numpy(), np.asarray(v_j), atol=ATOL, rtol=RTOL)
 
 
-def test_int8_arms_raise_not_implemented():
+def test_int8_pool_without_scales_raises():
+    """No fallback for a quantized pool or weight: an int8 pool without
+    its scale pools, one scale pool alone, or an int8 weight without its
+    scale row raises instead of being read as plain numbers."""
     q, kp, vp, table, index = _pool_case(2, 1, seed=1)
-    scales = torch.ones(NB, 2, 128)
-    with pytest.raises(NotImplementedError, match="int8"):
+    k8, v8 = _t(kp).to(torch.int8), _t(vp).to(torch.int8)
+    with pytest.raises(ValueError, match="scale"):
+        tda.paged_decode_attention(_t(q), k8, v8, _t(table), _t(index))
+    with pytest.raises(ValueError, match="go together"):
         tda.paged_decode_attention(
-            _t(q), _t(kp), _t(vp), _t(table), _t(index),
-            k_scales=scales, v_scales=scales,
+            _t(q), k8, v8, _t(table), _t(index), k_scales=torch.ones(NB, 2, 128)
         )
     x, w, bias, kp, vp, table, index = _fused_case(2, 1, seed=1)
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="w_scale"):
         tda.fused_qkv_paged_attention(
-            *map(_t, (x, w, bias, kp, vp, table, index)),
-            num_heads=HEADS, w_scale=torch.ones(w.shape[1]),
+            _t(x), _t(w).to(torch.int8), _t(bias), _t(kp), _t(vp), _t(table),
+            _t(index), num_heads=HEADS,
         )

@@ -190,9 +190,7 @@ def test_generation_past_max_seq_len_rejected(models):
 
 def test_dense_cache_refuses_int8_kv():
     """The dense cache has no scale pools: kv_dtype != 'model' raises
-    ValueError, as the JAX dense path does. (The port's LMConfig refuses
-    int8 storage outright until it is ported, so the field is forced.)"""
-    cfg = tlm.LMConfig(**CONFIGS["gqa"])
-    object.__setattr__(cfg, "kv_dtype", "int8")
+    ValueError, as the JAX dense path does."""
+    cfg = tlm.LMConfig(**CONFIGS["gqa"], kv_dtype="int8")
     with pytest.raises(ValueError, match="requires paged_decode"):
         tlm.DenseCache.zeros(cfg, 1, "cpu")

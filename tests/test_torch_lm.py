@@ -148,8 +148,6 @@ def test_config_fields_and_presets_match_jax():
         (dict(kv_dtype="fp4"), ValueError),
         (dict(num_experts=4), NotImplementedError),
         (dict(tp_devices=2), NotImplementedError),
-        (dict(kv_dtype="int8"), NotImplementedError),
-        (dict(w_dtype="int8-sim"), NotImplementedError),
         (dict(use_ring_attention=True), NotImplementedError),
     ],
 )
@@ -159,6 +157,19 @@ def test_config_validation(kwargs, err):
     if err is ValueError:  # the JAX config refuses the same values
         with pytest.raises(ValueError):
             jlm.LMConfig(**kwargs)
+
+
+@pytest.mark.parametrize("kv_dtype", ["model", "int8", "int8-sim"])
+@pytest.mark.parametrize("w_dtype", ["model", "int8", "int8-sim"])
+def test_quant_properties_match_jax(kv_dtype, w_dtype):
+    """Every kv_dtype x w_dtype constructs, and kv_quant, w_quant and
+    kv_storage_dtype read as the JAX config's properties do."""
+    kw = dict(kv_dtype=kv_dtype, w_dtype=w_dtype, dtype="bfloat16")
+    t, j = tlm.LMConfig(**kw), jlm.LMConfig(**kw)
+    assert (t.kv_quant, t.w_quant) == (j.kv_quant, j.w_quant)
+    assert str(t.kv_storage_dtype).removeprefix("torch.") == str(
+        j.kv_storage_dtype
+    )
 
 
 def test_apply_rope_matches_jax():

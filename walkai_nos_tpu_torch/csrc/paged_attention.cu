@@ -21,10 +21,24 @@
 // masked scores are -1e30 (not -inf), the softmax scale multiplies the
 // f32 scores (q is never pre-scaled in the storage type).
 //
+// Quantized pools (_stream_fold's `ks` / `vs` seam, and _fused_stream_kernel
+// at decode_attention.py:965-1000): with k_scales / v_scales given
+// ([nb, kvh, 128] f32, indexed by the same table entry as the block), the
+// score of column c is dot(q, k_c) * hd^-0.5 * ks[c], the running sum takes
+// the unscaled p, and the PV product takes p * vs[c]. An int8 pool
+// (the `_i8_` entry points) converts each tile to q's type in shared
+// memory, losslessly (|k| <= 127); injected fresh rows stay in q's type and
+// their scale columns are exactly 1.0, so whatever the scale pools hold at
+// the write positions never reaches the output. A "sim" pool (q's type,
+// unit scales) runs the same code: x * 1.0 is exact and nothing else
+// changes order, so it matches the unquantized arm bit for bit.
+//
 // What bounds it on an H100: bytes. A decode step reads each resident
 // K/V byte once for g*steps query rows and does ~2*g*steps FLOPs per
 // byte, far below the ~295 FLOP/byte where the tensor cores would limit;
-// the floor is resident K/V bytes over 3.35 TB/s.
+// the floor is resident K/V bytes over 3.35 TB/s. An int8 pool halves
+// those bytes (plus 4 scale bytes per row and head), and its 16-byte loads
+// carry 16 elements instead of 8.
 //
 // What the design does about it:
 // - one CTA per (slot, kv head, split): each K/V byte of a block tile is
@@ -66,18 +80,27 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);
 }
+// A pool element in the compute type T: the identity for a T pool, a
+// lossless conversion for an int8 one.
+template <typename T> __device__ __forceinline__ T to_t(T x) { return x; }
+template <typename T> __device__ __forceinline__ T to_t(int8_t x) {
+  return from_f<T>(static_cast<float>(x));
+}
 
 // Partial results of one split: running max and sum per query row and
-// the unnormalised accumulator, f32.
-template <typename T>
+// the unnormalised accumulator, f32. T: q's type; P: the pool's (T or
+// int8_t).
+template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads) paged_attention_split_kernel(
     const T* __restrict__ q,        // [b, h, steps, hd]
-    const T* __restrict__ k_pool,   // [nb, kvh, kPage, hd]
-    const T* __restrict__ v_pool,   // [nb, kvh, kPage, hd]
+    const P* __restrict__ k_pool,   // [nb, kvh, kPage, hd]
+    const P* __restrict__ v_pool,   // [nb, kvh, kPage, hd]
     const int32_t* __restrict__ table,  // [b, nlog]
     const int32_t* __restrict__ index,  // [b]
     const T* __restrict__ k_new,    // [b, kvh, steps, hd] or nullptr
     const T* __restrict__ v_new,    // [b, kvh, steps, hd] or nullptr
+    const float* __restrict__ k_scales,  // [nb, kvh, kPage] or nullptr
+    const float* __restrict__ v_scales,  // [nb, kvh, kPage] or nullptr
     float* __restrict__ m_part,     // [b, kvh, nsplit, rows]
     float* __restrict__ l_part,     // [b, kvh, nsplit, rows]
     float* __restrict__ acc_part,   // [b, kvh, nsplit, rows, hd]
@@ -101,7 +124,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_split_kernel(
   float* m_s = acc + rows * hd;         // [rows] running max
   float* l_s = m_s + rows;              // [rows] running sum
   float* a_s = l_s + rows;              // [rows] this block's rescale
-  T* k_s = reinterpret_cast<T*>(a_s + rows);  // [kPage, ks]
+  float* ksc = a_s + rows;              // [kPage] this block's K scales
+  float* vsc = ksc + kPage;             // [kPage] this block's V scales
+  T* k_s = reinterpret_cast<T*>(vsc + kPage);  // [kPage, ks]
   T* v_s = k_s + kPage * ks;                  // [kPage, ks]
 
   // The rows of one kv head are contiguous: heads kh*g .. kh*g+g-1, each
@@ -124,18 +149,29 @@ __global__ void __launch_bounds__(kThreads) paged_attention_split_kernel(
   const int j1 = min(j0 + bps, nblk);
   const int32_t* trow = table + static_cast<size_t>(slot) * nlog;
   const bool inject = k_new != nullptr;
-  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
+  const bool scaled = k_scales != nullptr;
+  constexpr int kVec = 16 / sizeof(P);  // pool elements per 16-byte load
 
   for (int j = j0; j < j1; ++j) {
-    const size_t pbase =
-        (static_cast<size_t>(trow[j]) * kvh + kh) * kPage * hd;
+    const size_t sbase = (static_cast<size_t>(trow[j]) * kvh + kh) * kPage;
+    const size_t pbase = sbase * hd;
     __syncthreads();  // the previous block's readers are done
+    if (scaled) {
+      for (int c = tid; c < kPage; c += blockDim.x) {
+        const long long t = static_cast<long long>(j) * kPage + c - idx;
+        const bool fresh = inject && t >= 0 && t < steps;
+        ksc[c] = fresh ? 1.f : k_scales[sbase + c];
+        vsc[c] = fresh ? 1.f : v_scales[sbase + c];
+      }
+    }
     for (int e = tid * kVec; e < kPage * hd; e += blockDim.x * kVec) {
       const uint4 ku = *reinterpret_cast<const uint4*>(k_pool + pbase + e);
       const uint4 vu = *reinterpret_cast<const uint4*>(v_pool + pbase + e);
-      const T* kv = reinterpret_cast<const T*>(&ku);
-      const T* vv = reinterpret_cast<const T*>(&vu);
-      const int c = e / hd;  // hd % kVec == 0: one row per vector
+      const P* kv = reinterpret_cast<const P*>(&ku);
+      const P* vv = reinterpret_cast<const P*>(&vu);
+      // hd % kVec == 0 (16 int8, 8 bf16 or 4 f32 elements): one row per
+      // vector.
+      const int c = e / hd;
       const int d0 = e - c * hd;
       const long long t = static_cast<long long>(j) * kPage + c - idx;
       if (inject && t >= 0 && t < steps) {
@@ -149,8 +185,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_split_kernel(
       } else {
 #pragma unroll
         for (int u = 0; u < kVec; ++u) {
-          k_s[c * ks + d0 + u] = kv[u];
-          v_s[c * ks + d0 + u] = vv[u];
+          k_s[c * ks + d0 + u] = to_t<T>(kv[u]);
+          v_s[c * ks + d0 + u] = to_t<T>(vv[u]);
         }
       }
     }
@@ -166,6 +202,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_split_kernel(
         float dot = 0.f;
         for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], to_f(kr[d]), dot);
         s = dot * scale;
+        if (scaled) s *= ksc[c];  // per-row K dequant on the f32 score
       }
       s_s[e] = s;
     }
@@ -183,7 +220,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_split_kernel(
         // A masked score contributes exactly 0, also while every
         // position this split has seen is masked for the row.
         const float p = sr[c] <= kNegInf ? 0.f : expf(sr[c] - m_new);
-        sr[c] = p;
+        sr[c] = scaled ? p * vsc[c] : p;  // the sum takes p unscaled
         sum += p;
       }
       for (int o = 16; o > 0; o >>= 1)
@@ -248,17 +285,19 @@ __global__ void __launch_bounds__(kThreads) paged_attention_combine_kernel(
 
 template <typename T>
 size_t smem_bytes(int rows, int hd) {
-  return static_cast<size_t>(2 * rows * hd + rows * kPage + 3 * rows) *
+  return static_cast<size_t>(2 * rows * hd + rows * kPage + 3 * rows +
+                             2 * kPage) *
              sizeof(float) +
          static_cast<size_t>(2 * kPage * (hd + kPad)) * sizeof(T);
 }
 
-template <typename T>
+template <typename T, typename P>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* table, const void* index, const void* k_new,
-           const void* v_new, void* m_part, void* l_part, void* acc_part,
-           void* out, int b, int h, int kvh, int steps, int hd, int nlog,
-           int bps, int nsplit, float scale, void* stream) {
+           const void* v_new, const void* k_scales, const void* v_scales,
+           void* m_part, void* l_part, void* acc_part, void* out, int b,
+           int h, int kvh, int steps, int hd, int nlog, int bps, int nsplit,
+           float scale, void* stream) {
   const size_t smem = smem_bytes<T>((h / kvh) * steps, hd);
   // Raise the kernel's shared-memory cap only when a larger shape needs
   // it, so repeated launches (and CUDA graph capture) make no attribute
@@ -269,7 +308,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   static size_t smem_cap = 0;
   cudaError_t err = cudaSuccess;
   if (smem > smem_cap) {
-    err = cudaFuncSetAttribute(paged_attention_split_kernel<T>,
+    err = cudaFuncSetAttribute(paged_attention_split_kernel<T, P>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) {
@@ -279,11 +318,13 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
     smem_cap = smem;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  paged_attention_split_kernel<T><<<dim3(b, kvh, nsplit), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int32_t*>(table),
+  paged_attention_split_kernel<T, P><<<dim3(b, kvh, nsplit), kThreads, smem,
+                                       st>>>(
+      static_cast<const T*>(q), static_cast<const P*>(k_pool),
+      static_cast<const P*>(v_pool), static_cast<const int32_t*>(table),
       static_cast<const int32_t*>(index), static_cast<const T*>(k_new),
-      static_cast<const T*>(v_new), static_cast<float*>(m_part),
+      static_cast<const T*>(v_new), static_cast<const float*>(k_scales),
+      static_cast<const float*>(v_scales), static_cast<float*>(m_part),
       static_cast<float*>(l_part), static_cast<float*>(acc_part), h, kvh,
       steps, hd, nlog, bps, scale);
   err = cudaGetLastError();
@@ -302,28 +343,25 @@ extern "C" {
 // Each entry point returns cudaGetLastError() after its launches (0 = ok).
 // m_part / l_part: [b, kvh, nsplit, rows] f32 and acc_part: [b, kvh,
 // nsplit, rows, hd] f32 are scratch the caller allocates; split z covers
-// logical blocks [z * bps, (z + 1) * bps).
-int paged_attention_bf16(const void* q, const void* k_pool,
-                         const void* v_pool, const void* table,
-                         const void* index, const void* k_new,
-                         const void* v_new, void* m_part, void* l_part,
-                         void* acc_part, void* out, int b, int h, int kvh,
-                         int steps, int hd, int nlog, int bps, int nsplit,
-                         float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k_pool, v_pool, table, index, k_new, v_new,
-                               m_part, l_part, acc_part, out, b, h, kvh, steps,
-                               hd, nlog, bps, nsplit, scale, stream);
-}
+// logical blocks [z * bps, (z + 1) * bps). k_scales / v_scales: the f32
+// [nb, kvh, 128] scale pools of a quantized pool, or null. The `_i8_`
+// entry points take int8 pools (scales required); the others pools in
+// q's type.
+#define PAGED_ATTENTION_ENTRY(NAME, T, P)                                     \
+  int NAME(const void* q, const void* k_pool, const void* v_pool,             \
+           const void* table, const void* index, const void* k_new,           \
+           const void* v_new, const void* k_scales, const void* v_scales,     \
+           void* m_part, void* l_part, void* acc_part, void* out, int b,      \
+           int h, int kvh, int steps, int hd, int nlog, int bps, int nsplit,  \
+           float scale, void* stream) {                                       \
+    return launch<T, P>(q, k_pool, v_pool, table, index, k_new, v_new,       \
+                        k_scales, v_scales, m_part, l_part, acc_part, out, b, \
+                        h, kvh, steps, hd, nlog, bps, nsplit, scale, stream); \
+  }
 
-int paged_attention_f32(const void* q, const void* k_pool, const void* v_pool,
-                        const void* table, const void* index,
-                        const void* k_new, const void* v_new, void* m_part,
-                        void* l_part, void* acc_part, void* out, int b, int h,
-                        int kvh, int steps, int hd, int nlog, int bps,
-                        int nsplit, float scale, void* stream) {
-  return launch<float>(q, k_pool, v_pool, table, index, k_new, v_new, m_part,
-                       l_part, acc_part, out, b, h, kvh, steps, hd, nlog, bps,
-                       nsplit, scale, stream);
-}
+PAGED_ATTENTION_ENTRY(paged_attention_bf16, __nv_bfloat16, __nv_bfloat16)
+PAGED_ATTENTION_ENTRY(paged_attention_f32, float, float)
+PAGED_ATTENTION_ENTRY(paged_attention_i8_bf16, __nv_bfloat16, int8_t)
+PAGED_ATTENTION_ENTRY(paged_attention_i8_f32, float, int8_t)
 
 }  // extern "C"

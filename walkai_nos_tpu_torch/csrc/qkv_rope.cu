@@ -9,10 +9,19 @@
 // k_new / v_new [b, kvh, steps, hd] rows. The attention half is
 // paged_attention.cu with fresh-row injection.
 //
+// The int8-weight arm (the `_i8_` entry points; the TPU kernel's w_ref /
+// ws_ref at decode_attention.py:942-946): w holds int8 values with a
+// per-output-channel f32 scale row ws; qkv = (x @ w) in f32 * ws[n] +
+// bias[n], rounded once to x's type. Each 16-byte load brings 16 weights,
+// converted to f32 losslessly. A full-precision weight with ws all ones
+// (the "sim" arm) matches the unquantized arm bit for bit: v * 1.0 is
+// exact, and the multiply and the add are separate roundings.
+//
 // What bounds it on an H100: bytes. A decode step has only
 // b * steps <= 64 rows, so the product does ~2 * rows FLOPs per weight
 // element, and the floor is the weight read: dm * (dm + 2 * kv_dim)
-// elements (10.5 MB in bf16 at TinyLlama width) over 3.35 TB/s.
+// elements (10.5 MB in bf16 at TinyLlama width, 5.2 MB in int8) over
+// 3.35 TB/s.
 //
 // What the design does about it: the TPU grid ran slots one after
 // another with the weight resident in VMEM; on Hopper blocks run in
@@ -46,6 +55,9 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(int8_t x) {
+  return static_cast<float>(x);
+}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -56,11 +68,11 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
 }
 
 // partial[z, row, n] = sum over k in split z of x[row, k] * w[k, n],
-// summed in increasing k.
-template <typename T>
+// summed in increasing k. W: the weight's type (T or int8_t).
+template <typename T, typename W>
 __global__ void __launch_bounds__(kThreads) qkv_partial_kernel(
     const T* __restrict__ x,      // [M, K], M = b * steps
-    const T* __restrict__ w,      // [K, N], N = (h + 2 * kvh) * hd
+    const W* __restrict__ w,      // [K, N], N = (h + 2 * kvh) * hd
     float* __restrict__ partial,  // [ksplit, M, N]
     int M, int K, int N, int hd, int k_per_split) {
   __shared__ float xs[kBM][kBK];
@@ -72,7 +84,7 @@ __global__ void __launch_bounds__(kThreads) qkv_partial_kernel(
   const int k_end = min(K, k_begin + k_per_split);
   const int tid = threadIdx.x;
   const int outs = kBM * hd;
-  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kVec = 16 / sizeof(W);  // weights per 16-byte load
 
   float acc[kPerThread];
 #pragma unroll
@@ -95,7 +107,7 @@ __global__ void __launch_bounds__(kThreads) qkv_partial_kernel(
       if (k0 + kk < k_end) {
         const uint4 u = *reinterpret_cast<const uint4*>(
             w + static_cast<size_t>(k0 + kk) * N + n0 + c);
-        const T* v = reinterpret_cast<const T*>(&u);
+        const W* v = reinterpret_cast<const W*>(&u);
 #pragma unroll
         for (int t = 0; t < kVec; ++t) ws[e + t] = to_f(v[t]);
       } else {
@@ -128,8 +140,9 @@ __global__ void __launch_bounds__(kThreads) qkv_partial_kernel(
   }
 }
 
-// Sum the partials in split order, + bias in f32, round to the storage
-// type (the TPU kernel's `.astype(x.dtype)` before rotary), rotate in
+// Sum the partials in split order, x the weight's channel scale (int8
+// weights), + bias in f32, round to the storage type (the TPU kernel's
+// `.astype(x.dtype)` before rotary), rotate in
 // f32, and scatter into q / k_new / v_new. The rotary angles are those of
 // the TPU path's `_rope_tables` (f32: inv_freq = 1 / theta^(2i/hd),
 // angle = (index + t) * inv_freq), computed here instead of read from
@@ -138,6 +151,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) qkv_epilogue_kernel(
     const float* __restrict__ partial,  // [ksplit, M, N]
     const T* __restrict__ bias,         // [N] or nullptr
+    const float* __restrict__ wscale,   // [N] or nullptr
     const int32_t* __restrict__ index,  // [b] position of step 0
     float theta,                        // rotary base; <= 0: no rope
     T* __restrict__ q_out,              // [b, h, steps, hd]
@@ -158,7 +172,8 @@ __global__ void __launch_bounds__(kThreads) qkv_epilogue_kernel(
     if (row < M) {
       for (int z = 0; z < ksplit; ++z)
         v += partial[(static_cast<size_t>(z) * M + row) * N + n0 + c];
-      if (bias != nullptr) v += to_f(bias[n0 + c]);
+      if (wscale != nullptr) v = __fmul_rn(v, wscale[n0 + c]);
+      if (bias != nullptr) v = __fadd_rn(v, to_f(bias[n0 + c]));
     }
     ys[e] = to_f(from_f<T>(v));
   }
@@ -200,22 +215,24 @@ __global__ void __launch_bounds__(kThreads) qkv_epilogue_kernel(
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* w, const void* bias, const void* index,
-           float theta, void* partial, void* q_out, void* k_out,
-           void* v_out, int M, int K, int h, int kvh, int steps, int hd,
-           int ksplit, int k_per_split, void* stream) {
+template <typename T, typename W>
+int launch(const void* x, const void* w, const void* bias,
+           const void* wscale, const void* index, float theta, void* partial,
+           void* q_out, void* k_out, void* v_out, int M, int K, int h,
+           int kvh, int steps, int hd, int ksplit, int k_per_split,
+           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int heads = h + 2 * kvh;
   const int mtiles = (M + kBM - 1) / kBM;
-  qkv_partial_kernel<T><<<dim3(heads, mtiles, ksplit), kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
+  qkv_partial_kernel<T, W><<<dim3(heads, mtiles, ksplit), kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const W*>(w),
       static_cast<float*>(partial), M, K, heads * hd, hd, k_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   qkv_epilogue_kernel<T><<<dim3(heads, mtiles), kThreads, 0, st>>>(
       static_cast<const float*>(partial), static_cast<const T*>(bias),
-      static_cast<const int32_t*>(index), theta,
+      static_cast<const float*>(wscale), static_cast<const int32_t*>(index),
+      theta,
       static_cast<T*>(q_out), static_cast<T*>(k_out), static_cast<T*>(v_out),
       M, h, kvh, steps, hd, ksplit);
   return static_cast<int>(cudaGetLastError());
@@ -228,24 +245,24 @@ extern "C" {
 // Each entry point returns cudaGetLastError() after its launches (0 = ok).
 // `partial` is [ksplit, M, N] f32 scratch the caller allocates; split z
 // covers k in [z * k_per_split, (z + 1) * k_per_split). `index` [b] int32
-// is each slot's first position; `theta` <= 0 skips the rotary.
-int qkv_rope_bf16(const void* x, const void* w, const void* bias,
-                  const void* index, float theta, void* partial,
-                  void* q_out, void* k_out, void* v_out, int M, int K, int h,
-                  int kvh, int steps, int hd, int ksplit, int k_per_split,
-                  void* stream) {
-  return launch<__nv_bfloat16>(x, w, bias, index, theta, partial, q_out,
-                               k_out, v_out, M, K, h, kvh, steps, hd, ksplit,
-                               k_per_split, stream);
-}
+// is each slot's first position; `theta` <= 0 skips the rotary. `wscale`
+// is the weight's [N] f32 channel scale row, or null. The `_i8_` entry
+// points take an int8 weight (scale row required); the others a weight in
+// x's type.
+#define QKV_ROPE_ENTRY(NAME, T, W)                                            \
+  int NAME(const void* x, const void* w, const void* bias,                    \
+           const void* wscale, const void* index, float theta, void* partial, \
+           void* q_out, void* k_out, void* v_out, int M, int K, int h,        \
+           int kvh, int steps, int hd, int ksplit, int k_per_split,           \
+           void* stream) {                                                    \
+    return launch<T, W>(x, w, bias, wscale, index, theta, partial, q_out,     \
+                        k_out, v_out, M, K, h, kvh, steps, hd, ksplit,        \
+                        k_per_split, stream);                                 \
+  }
 
-int qkv_rope_f32(const void* x, const void* w, const void* bias,
-                 const void* index, float theta, void* partial,
-                 void* q_out, void* k_out, void* v_out, int M, int K, int h,
-                 int kvh, int steps, int hd, int ksplit, int k_per_split,
-                 void* stream) {
-  return launch<float>(x, w, bias, index, theta, partial, q_out, k_out, v_out,
-                       M, K, h, kvh, steps, hd, ksplit, k_per_split, stream);
-}
+QKV_ROPE_ENTRY(qkv_rope_bf16, __nv_bfloat16, __nv_bfloat16)
+QKV_ROPE_ENTRY(qkv_rope_f32, float, float)
+QKV_ROPE_ENTRY(qkv_rope_i8_bf16, __nv_bfloat16, int8_t)
+QKV_ROPE_ENTRY(qkv_rope_i8_f32, float, int8_t)
 
 }  // extern "C"

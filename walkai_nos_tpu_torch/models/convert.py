@@ -14,7 +14,10 @@ no leaf is transposed; the ViT's patch kernel keeps flax's `[p, p, 3,
 hidden]` Conv layout. Each leaf is cast to the dtype the port's module
 holds it in (the LM: Dense kernels and biases in the compute dtype, as
 flax casts them at every call, norms, `pos_embed` and the LM head in f32;
-the ViT: every leaf an f32 master, as in JAX training).
+the ViT: every leaf an f32 master, as in JAX training). A quantized LM
+tree (`models/lm.quantize_lm_params`) keeps its int8 kernels int8 and its
+`scale` rows f32: an int8 parameter takes only an int8 leaf, never a
+float one cast down.
 """
 
 from __future__ import annotations
@@ -56,7 +59,16 @@ def load_flax_params(model: nn.Module, params) -> nn.Module:
             f"param trees differ: missing {missing[:5]}, extra {extra[:5]}"
         )
     for name, p in own.items():
-        src = torch.from_numpy(np.array(flat[name], np.float32))
+        leaf = np.asarray(flat[name])
+        if p.dtype == torch.int8:
+            if leaf.dtype != np.int8:
+                raise ValueError(
+                    f"{name}: an int8 parameter needs an int8 leaf (a "
+                    f"quantized tree); got {leaf.dtype}"
+                )
+            src = torch.from_numpy(leaf.copy())
+        else:
+            src = torch.from_numpy(np.array(leaf, np.float32))
         if src.shape != p.shape:
             raise ValueError(
                 f"{name}: flax shape {tuple(src.shape)} != {tuple(p.shape)}"

@@ -3,9 +3,9 @@ and of one-shot generation, in PyTorch.
 
 Port of `walkai_nos_tpu/models/lm.py`. `LMConfig` keeps every field,
 default and validation of the JAX config, so configurations, capture
-fingerprints and replay keys carry over; the knobs this slice does not
-run (experts, tensor parallelism, int8 storage, ring/ulysses attention)
-raise NotImplementedError at construction.
+fingerprints and replay keys carry over; the knobs the port does not run
+yet (experts, tensor parallelism, ring/ulysses attention) raise
+NotImplementedError at construction.
 
 `DecoderLM` runs the decode forward over one of two KV caches:
 
@@ -23,7 +23,17 @@ raise NotImplementedError at construction.
   past cache_len, on the device.
 
 Both are written IN PLACE (the JAX model returns a new cache from a
-donated buffer). Attention routes exactly as `CausalAttention.__call__`
+donated buffer).
+
+Quantized storage, as in JAX: `kv_dtype="int8"` makes the paged pools
+int8 with parallel per-row f32 scale pools (rows quantize at the one
+emit, `scatter_paged_rows`; the dense cache refuses it), and
+`w_dtype="int8"` makes the five decode-path projections (`qkv`,
+`out_proj`, `gate`, `fc1`, `fc2`) `QuantDense` layers holding int8
+kernels with per-output-channel f32 scales (`quantize_lm_params` turns a
+full-precision flax tree into one). "int8-sim" runs the same code with
+full-precision storage and unit scales, bit for bit the unquantized
+model. Attention routes exactly as `CausalAttention.__call__`
 does in JAX:
 
 - paged, a short step (<= MAX_KERNEL_STEPS positions) on a CUDA tensor
@@ -49,6 +59,7 @@ import dataclasses
 from collections.abc import Mapping
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -59,6 +70,7 @@ from walkai_nos_tpu_torch.ops.decode_attention import (
     MAX_KERNEL_STEPS,
     PAGE_ROWS,
     decode_attention,
+    dequantize_gathered,
     fused_qkv_paged_attention,
     gather_paged_cache,
     paged_decode_attention,
@@ -75,8 +87,11 @@ __all__ = [
     "LM_SMALL",
     "LM_TINY",
     "PagedCache",
+    "QuantDense",
     "apply_rope",
     "draft_config",
+    "quantize_kernel",
+    "quantize_lm_params",
 ]
 
 _DTYPES = {
@@ -188,10 +203,6 @@ class LMConfig:
         for knob, on, item in (
             ("num_experts > 0", self.num_experts > 0, "MoE (moe.py)"),
             ("tp_devices > 1", self.tp_devices > 1, "parallelism"),
-            ("kv_dtype != 'model'", self.kv_dtype != "model",
-             "int8 KV and int8 weights"),
-            ("w_dtype != 'model'", self.w_dtype != "model",
-             "int8 KV and int8 weights"),
             ("use_ring_attention", self.use_ring_attention, "parallelism"),
             ("use_ulysses_attention", self.use_ulysses_attention,
              "parallelism"),
@@ -218,8 +229,20 @@ class LMConfig:
         return self.hidden_dim // self.num_heads
 
     @property
+    def kv_quant(self) -> str | None:
+        """The paged pools' quantization mode: None, "int8" or "sim"."""
+        return {"int8": "int8", "int8-sim": "sim"}.get(self.kv_dtype)
+
+    @property
+    def w_quant(self) -> str | None:
+        """The projections' quantization mode: None, "int8" or "sim"."""
+        return {"int8": "int8", "int8-sim": "sim"}.get(self.w_dtype)
+
+    @property
     def kv_storage_dtype(self) -> torch.dtype:
-        return self.compute_dtype
+        """int8 for kv_dtype="int8", else the compute dtype ("int8-sim"
+        stores full precision, so its round trip is exact)."""
+        return torch.int8 if self.kv_dtype == "int8" else self.compute_dtype
 
 
 LM_TINY = LMConfig(
@@ -301,6 +324,107 @@ class Dense(nn.Module):
         return y if self.bias is None else y + self.bias
 
 
+def quantize_kernel(kernel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX `quantize_lm_params`'s rule for one [in, out] kernel: per
+    OUTPUT channel, scale = column amax / 127 in f32 (floored at 1e-12),
+    values rounded half to even and clipped to +-127. Returns (int8
+    kernel, f32 scale row)."""
+    k32 = kernel.float()
+    scale = torch.clamp(k32.abs().amax(dim=0) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(k32 / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+class QuantDense(nn.Module):
+    """JAX `QuantDense`: `Dense`'s kernel and bias plus a `scale` row
+    ([out] f32). int8: the kernel is stored int8; the product runs in
+    f32 over the losslessly converted kernel, the scale multiplies the
+    f32 result, one rounding to the compute dtype follows, then the bias
+    is added in the compute dtype. sim: the kernel keeps the compute
+    dtype and the op sequence is `Dense`'s followed by an f32 multiply by
+    exactly 1.0, so the result is `Dense`'s bit for bit.
+
+    On the GPU the int8 product is a library GEMM over an f32 copy of
+    the kernel made per call (JAX leaves this product to XLA, not to a
+    Pallas kernel); the weight stays int8 in memory. Random weights are
+    `Dense`'s draws, quantized by `quantize_kernel`."""
+
+    def __init__(self, d_in, d_out, *, bias, dtype, device, gen, sim):
+        super().__init__()
+        self.sim = sim
+        self.dtype = dtype
+        kernel = _param((d_in, d_out), dtype, device, gen, std=0.02)
+        if sim:
+            self.kernel = kernel
+            self.scale = _param((d_out,), torch.float32, device, None, fill=1.0)
+        else:
+            q, scale = quantize_kernel(kernel.data)
+            self.kernel = nn.Parameter(q, requires_grad=False)
+            self.scale = nn.Parameter(scale, requires_grad=False)
+        self.bias = (
+            _param((d_out,), dtype, device, gen, fill=0.0) if bias else None
+        )
+
+    def forward(self, x):
+        x = x.to(self.dtype)
+        if self.sim:
+            y = ((x @ self.kernel).float() * self.scale).to(self.dtype)
+        else:
+            y = ((x.float() @ self.kernel.float()) * self.scale).to(self.dtype)
+        return y if self.bias is None else y + self.bias
+
+
+# The projections `_dense` builds and `quantize_lm_params` transforms (the
+# JAX names). Embedding, head and norms stay full precision.
+_QUANT_DENSE_NAMES = ("qkv", "out_proj", "gate", "fc1", "fc2")
+
+
+def _dense(cfg: LMConfig, d_in: int, d_out: int, *, device, gen):
+    """The decode-path projection factory: `Dense` at w_dtype="model",
+    `QuantDense` otherwise, so all five projections flip together."""
+    kw = dict(bias=cfg.use_bias, dtype=cfg.compute_dtype, device=device,
+              gen=gen)
+    if cfg.w_quant:
+        return QuantDense(d_in, d_out, sim=cfg.w_quant == "sim", **kw)
+    return Dense(d_in, d_out, **kw)
+
+
+def quantize_lm_params(params, cfg: LMConfig):
+    """JAX `quantize_lm_params` on a flax tree of numpy arrays, bit for
+    bit: "int8" turns each `_QUANT_DENSE_NAMES` kernel into int8 with a
+    per-output-channel f32 `scale` row (`quantize_kernel`); "int8-sim"
+    adds unit scales and keeps the kernels; "model" returns the tree
+    untouched. Biases and every other leaf pass through. Idempotent: a
+    scope that already has a `scale` is left alone. Returns a new tree;
+    the caller's is not changed."""
+    if not cfg.w_quant:
+        return params
+    sim = cfg.w_quant == "sim"
+
+    def transform(scope):
+        if "scale" in scope:
+            return scope
+        kernel = np.asarray(scope["kernel"])
+        if sim:
+            return {**scope, "scale": np.ones(kernel.shape[-1], np.float32)}
+        q, scale = quantize_kernel(torch.from_numpy(kernel.astype(np.float32)))
+        return {**scope, "kernel": q.numpy(), "scale": scale.numpy()}
+
+    def walk(tree):
+        out = {}
+        for name, sub in tree.items():
+            if (name in _QUANT_DENSE_NAMES and isinstance(sub, Mapping)
+                    and "kernel" in sub):
+                out[name] = transform(dict(sub))
+            elif isinstance(sub, Mapping):
+                out[name] = walk(sub)
+            else:
+                out[name] = sub
+        return out
+
+    return walk(params)
+
+
 class Norm(nn.Module):
     """flax `LayerNorm` / `RMSNorm` with dtype=f32: f32 statistics
     (LayerNorm's variance as mean(x^2) - mean(x)^2), f32 output."""
@@ -373,18 +497,18 @@ class CausalAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.hidden_dim
-        kw = dict(dtype=cfg.compute_dtype, device=device, gen=gen)
-        self.qkv = Dense(
-            d, d + 2 * cfg.kv_heads * cfg.head_dim, bias=cfg.use_bias, **kw
-        )
-        self.out_proj = Dense(d, d, bias=cfg.use_bias, **kw)
+        kw = dict(device=device, gen=gen)
+        self.qkv = _dense(cfg, d, d + 2 * cfg.kv_heads * cfg.head_dim, **kw)
+        self.out_proj = _dense(cfg, d, d, **kw)
 
-    def forward(self, x, k_pool, v_pool, table, index):
-        """`table` None means a dense cache: k_pool / v_pool are then the
-        layer's [batch, kv_heads, cache_len, head_dim] K/V."""
+    def forward(self, x, kv, table, index):
+        """kv: the layer's (k, v, k_scales, v_scales) from the cache's
+        `layer(i)`. `table` None means a dense cache: k / v are then the
+        layer's [batch, kv_heads, cache_len, head_dim] K/V (no scales)."""
         c = self.cfg
         b, s = x.shape[0], x.shape[1]
         theta = c.rope_theta if c.rope else None
+        k_pool, v_pool, ks, vs = kv
         if table is None:
             o = self._dense(x, k_pool, v_pool, index)
         elif c.fused_qkv and s <= MAX_KERNEL_STEPS and x.is_cuda:
@@ -392,28 +516,45 @@ class CausalAttention(nn.Module):
                 x.to(c.compute_dtype), self.qkv.kernel, self.qkv.bias,
                 k_pool, v_pool, table, index,
                 num_heads=c.num_heads, rope_theta=theta,
+                w_scale=self.qkv.scale if c.w_quant else None,
+                k_scales=ks, v_scales=vs,
             )
-            scatter_paged_rows(k_pool, v_pool, k_new, v_new, table, index)
+            # The kernel attended to the fresh rows at full precision;
+            # they quantize here, at the one emit.
+            scatter_paged_rows(
+                k_pool, v_pool, k_new, v_new, table, index,
+                k_scale_pool=ks, v_scale_pool=vs, quant=c.kv_quant,
+            )
         else:
-            o = self._unfused(x, k_pool, v_pool, table, index)
+            o = self._unfused(x, kv, table, index)
         o = o.transpose(1, 2).reshape(b, s, c.hidden_dim)
         return self.out_proj(o)
 
-    def _unfused(self, x, k_pool, v_pool, table, index):
-        """Projection -> split -> rotary -> scatter -> paged attention
-        (JAX `_paged_decode_attention` + `_paged_scatter_and_attend`)."""
+    def _unfused(self, x, kv, table, index):
+        """Projection -> split -> rotary -> scatter (quantizing) ->
+        paged attention (JAX `_paged_decode_attention` +
+        `_paged_scatter_and_attend`)."""
         c = self.cfg
+        k_pool, v_pool, ks, vs = kv
         q, k, v = split_qkv(
             self.qkv(x), index, num_heads=c.num_heads, kv_heads=c.kv_heads,
             rope_theta=c.rope_theta if c.rope else None,
         )
-        scatter_paged_rows(k_pool, v_pool, k, v, table, index)
-        if x.shape[1] <= MAX_KERNEL_STEPS:
-            return paged_decode_attention(q, k_pool, v_pool, table, index)
-        return _masked_cache_attention(
-            q, gather_paged_cache(k_pool, table),
-            gather_paged_cache(v_pool, table), index,
+        scatter_paged_rows(
+            k_pool, v_pool, k, v, table, index,
+            k_scale_pool=ks, v_scale_pool=vs, quant=c.kv_quant,
         )
+        if x.shape[1] <= MAX_KERNEL_STEPS:
+            return paged_decode_attention(
+                q, k_pool, v_pool, table, index, k_scales=ks, v_scales=vs
+            )
+        if c.kv_quant:
+            k_all = dequantize_gathered(k_pool, ks, table, q.dtype)
+            v_all = dequantize_gathered(v_pool, vs, table, q.dtype)
+        else:
+            k_all = gather_paged_cache(k_pool, table)
+            v_all = gather_paged_cache(v_pool, table)
+        return _masked_cache_attention(q, k_all, v_all, index)
 
     def _dense(self, x, k_cache, v_cache, idx):
         """Dense-cache decoding (JAX `_decode_attention`): projection ->
@@ -447,20 +588,17 @@ class DecoderBlock(nn.Module):
     def __init__(self, cfg: LMConfig, device, gen):
         super().__init__()
         self.cfg = cfg
-        kw = dict(
-            bias=cfg.use_bias, dtype=cfg.compute_dtype, device=device,
-            gen=gen,
-        )
+        kw = dict(device=device, gen=gen)
         self.norm1 = Norm(cfg, device)
         self.attn = CausalAttention(cfg, device, gen)
         self.norm2 = Norm(cfg, device)
         if cfg.mlp == "swiglu":
-            self.gate = Dense(cfg.hidden_dim, cfg.mlp_width, **kw)
-        self.fc1 = Dense(cfg.hidden_dim, cfg.mlp_width, **kw)
-        self.fc2 = Dense(cfg.mlp_width, cfg.hidden_dim, **kw)
+            self.gate = _dense(cfg, cfg.hidden_dim, cfg.mlp_width, **kw)
+        self.fc1 = _dense(cfg, cfg.hidden_dim, cfg.mlp_width, **kw)
+        self.fc2 = _dense(cfg, cfg.mlp_width, cfg.hidden_dim, **kw)
 
-    def forward(self, x, k_pool, v_pool, table, index):
-        x = x + self.attn(self.norm1(x), k_pool, v_pool, table, index)
+    def forward(self, x, kv, table, index):
+        x = x + self.attn(self.norm1(x), kv, table, index)
         h = self.norm2(x)
         if self.cfg.mlp == "swiglu":
             h = F.silu(self.gate(h)) * self.fc1(h)
@@ -472,10 +610,16 @@ class DecoderBlock(nn.Module):
 @dataclass
 class PagedCache:
     """Per-layer K/V block pools, [paged_blocks, kv_heads, PAGE_ROWS,
-    head_dim] each, written in place by `DecoderLM.forward`."""
+    head_dim] each in `kv_storage_dtype`, written in place by
+    `DecoderLM.forward`. With `kv_quant`, per-layer f32 scale pools
+    `ks` / `vs` [paged_blocks, kv_heads, PAGE_ROWS] parallel them under
+    the same block ids (zero-initialized: an unwritten row dequantizes to
+    zero); else `ks` / `vs` are None."""
 
     k: list
     v: list
+    ks: list | None = None
+    vs: list | None = None
 
     @classmethod
     def zeros(cls, cfg: LMConfig, device) -> "PagedCache":
@@ -483,15 +627,26 @@ class PagedCache:
             raise ValueError("a paged cache needs a paged_decode config")
         shape = (cfg.paged_blocks, cfg.kv_heads, PAGE_ROWS, cfg.head_dim)
 
-        def pool():
-            return torch.zeros(
-                shape, dtype=cfg.kv_storage_dtype, device=device
-            )
+        def pools(shape, dtype):
+            return [
+                torch.zeros(shape, dtype=dtype, device=device)
+                for _ in range(cfg.num_layers)
+            ]
 
-        return cls(
-            [pool() for _ in range(cfg.num_layers)],
-            [pool() for _ in range(cfg.num_layers)],
+        cache = cls(
+            pools(shape, cfg.kv_storage_dtype),
+            pools(shape, cfg.kv_storage_dtype),
         )
+        if cfg.kv_quant:
+            cache.ks = pools(shape[:3], torch.float32)
+            cache.vs = pools(shape[:3], torch.float32)
+        return cache
+
+    def layer(self, i: int) -> tuple:
+        """Layer i's (k, v, k_scales, v_scales)."""
+        if self.ks is None:
+            return self.k[i], self.v[i], None, None
+        return self.k[i], self.v[i], self.ks[i], self.vs[i]
 
 
 @dataclass
@@ -536,6 +691,10 @@ class DenseCache:
             [buf() for _ in range(cfg.num_layers)],
             index,
         )
+
+    def layer(self, i: int) -> tuple:
+        """Layer i's (k, v, None, None): a dense cache has no scales."""
+        return self.k[i], self.v[i], None, None
 
     def row(self, b: int) -> "DenseCache":
         """Batch row b as a one-row ragged cache at index 0 whose K/V are
@@ -645,7 +804,7 @@ class DecoderLM(nn.Module):
             rows = start[..., None] + torch.arange(steps, device=x.device)
             x = x + self.pos_embed[0][rows].to(x.dtype)
         for i, block in enumerate(self.blocks):
-            x = block(x, cache.k[i], cache.v[i], table, index)
+            x = block(x, cache.layer(i), table, index)
         if dense:
             cache.index += steps
         return self.head(self.norm(x))

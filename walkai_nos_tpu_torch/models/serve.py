@@ -28,6 +28,12 @@ leave at EOS or their budget, without stopping the batch.
   decode kernel's per-row arm.
 - **Pipelined stepping**: the host keeps one chunk in flight and reads
   the previous chunk's tokens while the device computes the next.
+- **Quantized storage** (`LMConfig.kv_dtype` / `w_dtype`, "int8" or
+  "int8-sim"): int8 paged pools with per-row f32 scale pools (paged mode
+  only), and int8 projection weights with per-output-channel scales. A
+  flax tree is quantized at build (`quantize_lm_params`, on the engine's
+  own copy; idempotent); a `DecoderLM` must already be built for the
+  config. `quant_stats()` reports what the knobs did.
 
 What differs from the JAX engine, and why:
 
@@ -58,6 +64,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -68,6 +75,7 @@ from walkai_nos_tpu_torch.models.lm import (
     DenseCache,
     LMConfig,
     PagedCache,
+    quantize_lm_params,
 )
 from walkai_nos_tpu_torch.models.prefix_cache import PrefixIndex
 from walkai_nos_tpu_torch.models.serve_lane import (
@@ -158,6 +166,12 @@ class ContinuousBatcher:
                 raise _not_ported(what, item)
         if loop_steps < 1:
             raise ValueError(f"loop_steps must be >= 1; got {loop_steps}")
+        if cfg.kv_dtype != "model" and not paged:
+            raise ValueError(
+                f"kv_dtype={cfg.kv_dtype!r} requires the paged engine "
+                f"(the per-row scale pools parallel the block pool; "
+                f"the dense cache has none)"
+            )
         cache_len = cache_len or cfg.max_seq_len
         if prompt_bucket > cache_len:
             raise ValueError(
@@ -198,6 +212,12 @@ class ContinuousBatcher:
                 cfg, ragged_decode=True, cache_len=cache_len
             )
             self.pool = None
+        # Weight quantization: a flax tree transforms once, here, into a
+        # new tree (the caller's is left alone).
+        t_quant = time.monotonic()
+        if isinstance(params, Mapping):
+            params = quantize_lm_params(params, self.cfg)
+        self._quant_seconds = time.monotonic() - t_quant
         self.model = DecoderLM.from_params(self.cfg, params, device)
         self.device = self.model.device
         cache = (
@@ -410,9 +430,14 @@ class ContinuousBatcher:
         }
 
     def _kv_bytes_per_token(self) -> int:
+        """Cache bytes one resident token takes: per layer, K and V of
+        every kv head at the storage dtype's size, plus one f32 scale per
+        row and head in a quantized pool ("int8-sim" too: its scale pools
+        are resident) (JAX `obs/attrib.kv_hbm_bytes_per_token`)."""
         c = self.cfg
         item = torch.empty((), dtype=c.kv_storage_dtype).element_size()
-        return c.num_layers * 2 * c.kv_heads * c.head_dim * item
+        scale = 4 if c.kv_quant else 0
+        return c.num_layers * 2 * c.kv_heads * (c.head_dim * item + scale)
 
     def _kv_backing_bytes(self) -> int:
         """Cache bytes backing the resident tokens: paged, the allocated
@@ -450,6 +475,35 @@ class ContinuousBatcher:
             **books,
             "paged": self.paged,
             "admission_stall_s": round(self.obs.stall.value(), 6),
+        }
+
+    def quant_stats(self) -> dict:
+        """Quantization view (the JAX engine's `quant_stats()`, without
+        its obs planes): the configured dtypes, the per-token KV bytes,
+        the served weights' bytes, the paged pools' backing bytes by
+        storage dtype with the f32 scale pools apart, and the seconds the
+        build spent quantizing weights."""
+        c = self.cfg
+        name = str(c.kv_storage_dtype).removeprefix("torch.")
+        kv_cache_bytes = {}
+        if self.paged:
+            tokens = self.pool_blocks * PAGE_ROWS
+            per_head = c.num_layers * 2 * c.kv_heads
+            item = torch.empty((), dtype=c.kv_storage_dtype).element_size()
+            kv_cache_bytes[name] = tokens * per_head * c.head_dim * item
+            if c.kv_quant:
+                kv_cache_bytes["scale-f32"] = tokens * per_head * 4
+        return {
+            "enabled": bool(c.kv_quant or c.w_quant),
+            "kv_dtype": c.kv_dtype,
+            "w_dtype": c.w_dtype,
+            "kv_storage_dtype": name,
+            "kv_bytes_per_token": self._kv_bytes_per_token(),
+            "param_bytes": sum(
+                p.numel() * p.element_size() for p in self.model.parameters()
+            ),
+            "kv_cache_bytes": kv_cache_bytes,
+            "weight_quant_seconds": round(self._quant_seconds, 6),
         }
 
     def prefix_stats(self) -> dict:

@@ -41,9 +41,18 @@ Layouts at the public functions are the JAX package's. The one
 difference: `scatter_paged_rows` writes the pools IN PLACE (JAX returns
 new pools from a donated buffer) and returns them for convenience.
 
-Unquantized arms only: int8 pools (`k_scales`/`v_scales`) and int8
-weights (`w_scale`) raise NotImplementedError until the ROADMAP's "int8
-KV and int8 weights" item ports them.
+Quantized storage (the JAX package's int8 arms): a paged pool may hold
+int8 rows with one f32 scale per row in parallel `[num_blocks, kv_heads,
+PAGE_ROWS]` scale pools (`k_scales` / `v_scales`, indexed by the same
+block ids); rows quantize once, at emit (`scatter_paged_rows`), and K1
+dequantizes inside its fold (K scales on the f32 score columns, V scales
+on the probability columns). The fused QKV weight may be int8 with a
+per-output-channel f32 scale row (`w_scale`), applied by K2 to the f32
+sum before the bias and the rounding. The "sim" arms run the same code
+with full-precision storage and unit scales, bit for bit the unquantized
+arms. An int8 pool or weight on a CUDA tensor launches its int8 arm
+(`LAUNCHES["paged_attention_int8"]`, `LAUNCHES["qkv_rope_int8"]`) or
+raises; it is never dequantized into the unquantized kernel.
 """
 
 from __future__ import annotations
@@ -54,19 +63,23 @@ import functools
 import torch
 
 __all__ = [
+    "KV_QUANT_MODES",
     "LAUNCHES",
     "MAX_GROUP_ROWS",
     "MAX_KERNEL_STEPS",
     "PAGE_ROWS",
     "decode_attention",
     "decode_attention_reference",
+    "dequantize_gathered",
     "fused_qkv_paged_attention",
     "fused_qkv_paged_reference",
     "gather_paged_cache",
+    "gather_paged_scales",
     "paged_decode_attention",
     "paged_decode_attention_reference",
     "qkv_rope_projection",
     "qkv_rope_reference",
+    "quantize_kv_rows",
     "reset_launch_counts",
     "rope_tables",
     "rotate",
@@ -90,12 +103,21 @@ MAX_GROUP_ROWS = 64
 
 # Launch counts per kernel: each wrapper adds one where it launches its
 # kernel, and nowhere else.
-LAUNCHES = {"paged_attention": 0, "qkv_rope": 0, "decode_attention": 0}
+# The int8 arms count apart from the full-precision ones (a "sim" pool or
+# weight is full precision and counts with those).
+LAUNCHES = {
+    "paged_attention": 0, "paged_attention_int8": 0, "qkv_rope": 0,
+    "qkv_rope_int8": 0, "decode_attention": 0,
+}
 
-_INT8_TODO = (
-    "int8 KV pools and int8 weights are not ported yet (ROADMAP: "
-    "'int8 KV and int8 weights')"
-)
+# Quantized KV storage modes (`LMConfig.kv_quant`): "int8" stores int8 rows
+# with per-row f32 scales; "sim" stores full-precision rows with unit
+# scales, the lossless arm that runs the same code.
+KV_QUANT_MODES = ("int8", "sim")
+_INT8_MAX = 127.0
+# Per-row scale floor: an all-zero row quantizes to zeros under this scale
+# instead of dividing by zero, and dequantizes to exactly zero.
+_SCALE_TINY = 1e-12
 
 
 def reset_launch_counts() -> None:
@@ -157,32 +179,88 @@ def gather_paged_cache(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return gathered.permute(0, 2, 1, 3, 4).reshape(b, kvh, nlog * rows, d)
 
 
+def quantize_kv_rows(
+    rows: torch.Tensor, quant: str
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """rows [..., head_dim] -> (stored [..., head_dim], scales [...] f32).
+
+    "int8": symmetric per-row quantization, scale = amax / 127 in f32
+    (floored at `_SCALE_TINY`), values rounded half to even and clipped
+    to +-127, stored int8. "sim": the rows unchanged with unit scales
+    (the lossless arm). The scatter casts `stored` to the pool dtype."""
+    if quant == "int8":
+        r32 = rows.float()
+        amax = r32.abs().amax(dim=-1)
+        scale = torch.clamp(amax / _INT8_MAX, min=_SCALE_TINY)
+        q = torch.clamp(
+            torch.round(r32 / scale[..., None]), -_INT8_MAX, _INT8_MAX
+        ).to(torch.int8)
+        return q, scale
+    if quant == "sim":
+        return rows, torch.ones(
+            rows.shape[:-1], dtype=torch.float32, device=rows.device
+        )
+    raise ValueError(f"unknown kv quant mode {quant!r}")
+
+
+def gather_paged_scales(
+    scale_pool: torch.Tensor, table: torch.Tensor
+) -> torch.Tensor:
+    """Scale-side `gather_paged_cache`: [num_blocks, kv_heads, PAGE_ROWS]
+    through [batch, nlog] -> [batch, kv_heads, nlog * PAGE_ROWS]."""
+    b, nlog = table.shape
+    _, kvh, rows = scale_pool.shape
+    return scale_pool[table.long()].permute(0, 2, 1, 3).reshape(
+        b, kvh, nlog * rows
+    )
+
+
+def dequantize_gathered(pool, scale_pool, table, dtype) -> torch.Tensor:
+    """Dense DEQUANTIZED view: gather blocks and their scales through the
+    table, multiply in f32, cast to `dtype`. With "sim" scales (all 1.0)
+    the round trip is exact."""
+    view = gather_paged_cache(pool, table).float()
+    scales = gather_paged_scales(scale_pool, table)
+    return (view * scales[..., None]).to(dtype)
+
+
 def paged_decode_attention_reference(
     q, k_pool, v_pool, table, index, k_scales=None, v_scales=None,
 ) -> torch.Tensor:
     """Plain paged attention: gather each slot's blocks into a dense
-    view, then `decode_attention_reference`. Whatever unreferenced pool
-    blocks hold is masked out."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(_INT8_TODO)
-    return decode_attention_reference(
-        q, gather_paged_cache(k_pool, table),
-        gather_paged_cache(v_pool, table), index,
-    )
+    view (dequantized through the scale pools when given), then
+    `decode_attention_reference`. Whatever unreferenced pool blocks hold
+    is masked out."""
+    if k_scales is not None:
+        k_view = dequantize_gathered(k_pool, k_scales, table, q.dtype)
+        v_view = dequantize_gathered(v_pool, v_scales, table, q.dtype)
+    else:
+        k_view = gather_paged_cache(k_pool, table)
+        v_view = gather_paged_cache(v_pool, table)
+    return decode_attention_reference(q, k_view, v_view, index)
 
 
 def scatter_paged_rows(
     k_pool: torch.Tensor, v_pool: torch.Tensor,
     k: torch.Tensor, v: torch.Tensor,
     table: torch.Tensor, index: torch.Tensor,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    *,
+    k_scale_pool: torch.Tensor | None = None,
+    v_scale_pool: torch.Tensor | None = None,
+    quant: str | None = None,
+) -> tuple[torch.Tensor, ...]:
     """Write fresh K/V rows through the block table, IN PLACE.
 
     k/v: [batch, kv_heads, steps, head_dim] for positions
     index .. index+steps-1 of each slot. Rows at positions past the
     table's capacity (nlog * PAGE_ROWS) are DROPPED, never clipped: a
     clipped write would land in the slot's last real block and corrupt
-    committed rows. Returns the (mutated) pools.
+    committed rows. Returns the (mutated) pools: (k_pool, v_pool), or
+    with `quant` (k_pool, v_pool, k_scale_pool, v_scale_pool).
+
+    With `quant` the rows quantize HERE (`quantize_kv_rows`), the one
+    emit every paged writer passes through, and their scales land at the
+    same (block, row) indices, dropped past capacity alike.
 
     The drop is done without a host sync (no boolean indexing): a
     dropped row is aimed at the scratch block 0 and carries that
@@ -194,15 +272,25 @@ def scatter_paged_rows(
     nlog = table.shape[1]
     pos = index.long()[:, None] + torch.arange(steps, device=k.device)
     logical = torch.clamp(pos // page, 0, nlog - 1)
-    keep = (pos < nlog * page).reshape(-1, 1, 1)
+    keep = (pos < nlog * page).reshape(-1, 1)
     phys = torch.gather(table.long(), 1, logical).reshape(-1)
     phys = torch.where(keep.reshape(-1), phys, torch.zeros_like(phys))
     row = (pos % page).reshape(-1)
+    if quant is not None:
+        k, k_scales = quantize_kv_rows(k, quant)
+        v, v_scales = quantize_kv_rows(v, quant)
     for pool, new in ((k_pool, k), (v_pool, v)):
         rows = new.permute(0, 2, 1, 3).reshape(bsz * steps, kvh, hd)
-        rows = torch.where(keep, rows.to(pool.dtype), pool[phys, :, row, :])
+        rows = torch.where(
+            keep[..., None], rows.to(pool.dtype), pool[phys, :, row, :]
+        )
         pool[phys, :, row, :] = rows
-    return k_pool, v_pool
+    if quant is None:
+        return k_pool, v_pool
+    for pool, new in ((k_scale_pool, k_scales), (v_scale_pool, v_scales)):
+        rows = new.permute(0, 2, 1).reshape(bsz * steps, kvh)
+        pool[phys, :, row] = torch.where(keep, rows, pool[phys, :, row])
+    return k_pool, v_pool, k_scale_pool, v_scale_pool
 
 
 def rope_tables(
@@ -256,13 +344,17 @@ def split_qkv(qkv, index, *, num_heads, kv_heads, rope_theta=None):
 
 def qkv_rope_reference(
     x, w_qkv, b_qkv, index, *, num_heads, kv_heads, rope_theta=None,
+    w_scale=None,
 ):
     """Plain version of K2, as the TPU kernel's `_project` stage
-    computes it: qkv = (x @ w) in f32 + bias in f32, rounded to x's
-    dtype, split and rotated. x: [batch, steps, d_model]; w_qkv:
-    [d_model, d_model + 2 * kv_dim]. Returns q [batch, heads, steps,
-    head_dim] and k_new, v_new [batch, kv_heads, steps, head_dim]."""
+    computes it: qkv = (x @ w) in f32 (x `w_scale` per output channel
+    for an int8 weight) + bias in f32, rounded to x's dtype, split and
+    rotated. x: [batch, steps, d_model]; w_qkv: [d_model, d_model + 2 *
+    kv_dim]. Returns q [batch, heads, steps, head_dim] and k_new, v_new
+    [batch, kv_heads, steps, head_dim]."""
     qkv = x.float() @ w_qkv.float()
+    if w_scale is not None:
+        qkv = qkv * w_scale.float()
     if b_qkv is not None:
         qkv = qkv + b_qkv.float()
     q, k, v = split_qkv(
@@ -281,16 +373,42 @@ def fused_qkv_paged_reference(
     reference spells out: projection (in x's dtype) -> split/transpose
     -> rotary -> scatter into COPIES of the pools -> gather + plain
     paged attention. Returns (o, k_new, v_new); the caller's pools are
-    not touched."""
-    if w_scale is not None or k_scales is not None or v_scales is not None:
-        raise NotImplementedError(_INT8_TODO)
-    qkv = x @ w_qkv
-    if b_qkv is not None:
-        qkv = qkv + b_qkv
+    not touched.
+
+    `w_scale` marks an int8 weight: the product runs in f32, the scale
+    multiplies it before the bias, and one rounding to x's dtype follows.
+    `k_scales` / `v_scales` mark quantized pools: attention reads the
+    dequantized view with the fresh rows placed at FULL precision at
+    their positions (dropped past capacity), as the kernel injects
+    them; they quantize only at the caller's scatter."""
+    if w_scale is not None:
+        qkv = (x.float() @ w_qkv.float()) * w_scale.float()
+        if b_qkv is not None:
+            qkv = qkv + b_qkv.float()
+        qkv = qkv.to(x.dtype)
+    else:
+        qkv = x @ w_qkv
+        if b_qkv is not None:
+            qkv = qkv + b_qkv
     q, k, v = split_qkv(
         qkv, index, num_heads=num_heads, kv_heads=k_pool.shape[1],
         rope_theta=rope_theta,
     )
+    if k_scales is not None:
+        views = []
+        for pool, scales, new in ((k_pool, k_scales, k), (v_pool, v_scales, v)):
+            view = dequantize_gathered(pool, scales, table, x.dtype)
+            bsz, kvh, cap, hd = view.shape
+            # One spare row past capacity takes the dropped writes.
+            view = torch.cat([view, view.new_zeros(bsz, kvh, 1, hd)], dim=2)
+            pos = index.long()[:, None] + torch.arange(
+                new.shape[2], device=x.device
+            )
+            pos = torch.where(pos < cap, pos, torch.full_like(pos, cap))
+            bidx = torch.arange(bsz, device=x.device)[:, None]
+            view[bidx, :, pos, :] = new.permute(0, 2, 1, 3).to(x.dtype)
+            views.append(view[:, :, :cap])
+        return decode_attention_reference(q, *views, index), k, v
     kp, vp = scatter_paged_rows(
         k_pool.clone(), v_pool.clone(), k, v, table, index
     )
@@ -447,17 +565,43 @@ def decode_attention(q, k, v, index) -> torch.Tensor:
     return out[:, :, 0] if single else out
 
 
-def _paged_attention_cuda(q, k_pool, v_pool, table, index, k_new, v_new):
+def _check_pool_scales(k_pool, v_pool, k_scales, v_scales) -> None:
+    """Scales come both or neither, and an int8 pool comes with them."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales go together")
+    if k_scales is None and torch.int8 in (k_pool.dtype, v_pool.dtype):
+        raise ValueError(
+            "an int8 pool needs its scale pools (k_scales / v_scales)"
+        )
+    if k_pool.dtype != v_pool.dtype:
+        raise TypeError("the K and V pools must share one dtype")
+
+
+def _vector_elems(t: torch.Tensor) -> int:
+    """Elements of `t` per 16-byte load (8 bf16, 4 f32, 16 int8)."""
+    return 16 // t.element_size()
+
+
+def _paged_attention_cuda(
+    q, k_pool, v_pool, table, index, k_new, v_new,
+    k_scales=None, v_scales=None,
+):
     """Launch K1 (split pass + combine). q [b, h, steps, hd];
     k_new/v_new None or [b, kv_heads, steps, hd] fresh rows injected at
-    positions index .. index+steps-1."""
-    _require_cuda(q, k_pool, v_pool, table, index, k_new, v_new)
+    positions index .. index+steps-1; k/v_scales None or the f32
+    [nb, kv_heads, PAGE_ROWS] scale pools of a quantized pool (int8, or
+    q's dtype for the "sim" arm)."""
+    _require_cuda(q, k_pool, v_pool, table, index, k_new, v_new, k_scales,
+                  v_scales)
+    _check_pool_scales(k_pool, v_pool, k_scales, v_scales)
     b, h, steps, hd = q.shape
     nb, kvh, page, _ = k_pool.shape
-    if page != PAGE_ROWS or k_pool.shape[3] != hd or hd % 8 != 0:
+    if (page != PAGE_ROWS or k_pool.shape[3] != hd
+            or hd % _vector_elems(k_pool) != 0):
         raise ValueError(
             f"pool shape {tuple(k_pool.shape)} does not match q, or "
-            f"head_dim {hd} is not a multiple of 8"
+            f"head_dim {hd} is not a multiple of "
+            f"{_vector_elems(k_pool)} (one 16-byte load)"
         )
     if h % kvh != 0 or steps > MAX_KERNEL_STEPS:
         raise ValueError(
@@ -468,8 +612,18 @@ def _paged_attention_cuda(q, k_pool, v_pool, table, index, k_new, v_new):
         raise ValueError("paged pools must be contiguous")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("paged pools must be 16-byte aligned")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError("q and the pools must share one dtype")
+    int8 = k_pool.dtype == torch.int8
+    if not int8 and k_pool.dtype != q.dtype:
+        raise TypeError("q and the pools must share one dtype (or int8 pools)")
+    if k_scales is not None:
+        for s in (k_scales, v_scales):
+            if s.dtype != torch.float32 or tuple(s.shape) != (nb, kvh, page):
+                raise ValueError(
+                    f"scale pools must be f32 [{nb}, {kvh}, {page}]; got "
+                    f"{s.dtype} {tuple(s.shape)}"
+                )
+        k_scales = k_scales.contiguous()
+        v_scales = v_scales.contiguous()
     rows = (h // kvh) * steps
     if (k_new is None) != (v_new is None):
         raise ValueError("k_new and v_new go together")
@@ -486,21 +640,25 @@ def _paged_attention_cuda(q, k_pool, v_pool, table, index, k_new, v_new):
     l_part = torch.empty(b, kvh, nsplit, rows, **f32)
     acc_part = torch.empty(b, kvh, nsplit, rows, hd, **f32)
     out = torch.empty_like(q)
+    arm = "paged_attention_int8" if int8 else "paged_attention"
     fn = _kernel_fn(
-        "paged_attention", "paged_attention_" + _suffix(q),
-        [_P] * 11 + [_I] * 8 + [ctypes.c_float, _P],
+        "paged_attention",
+        ("paged_attention_i8_" if int8 else "paged_attention_") + _suffix(q),
+        [_P] * 13 + [_I] * 8 + [ctypes.c_float, _P],
     )
     code = fn(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         table.data_ptr(), index.data_ptr(),
         None if k_new is None else k_new.data_ptr(),
         None if v_new is None else v_new.data_ptr(),
+        None if k_scales is None else k_scales.data_ptr(),
+        None if v_scales is None else v_scales.data_ptr(),
         m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
         out.data_ptr(), b, h, kvh, steps, hd, nlog, bps, nsplit,
         hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _check(code, "paged_attention")
-    LAUNCHES["paged_attention"] += 1
+    _check(code, arm)
+    LAUNCHES[arm] += 1
     return out
 
 
@@ -511,49 +669,70 @@ def paged_decode_attention(
     a CPU tensor). q: [batch, heads, head_dim] or [batch, heads, steps,
     head_dim]; k/v_pool: [num_blocks, kv_heads, PAGE_ROWS, head_dim];
     table: [batch, nlog] int physical block ids (every entry a valid
-    block; idle slots park on block 0); index: [batch] int."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(_INT8_TODO)
+    block; idle slots park on block 0); index: [batch] int. A quantized
+    pool (int8, or "sim" in q's dtype) comes with its f32 `k_scales` /
+    `v_scales` [num_blocks, kv_heads, PAGE_ROWS]; an int8 pool without
+    them raises."""
+    _check_pool_scales(k_pool, v_pool, k_scales, v_scales)
     if q.device.type == "cpu":
         return paged_decode_attention_reference(
-            q, k_pool, v_pool, table, index
+            q, k_pool, v_pool, table, index, k_scales, v_scales
         )
     single = q.dim() == 3
     out = _paged_attention_cuda(
         q[:, :, None, :] if single else q, k_pool, v_pool, table, index,
-        None, None,
+        None, None, k_scales, v_scales,
     )
     return out[:, :, 0] if single else out
 
 
 def qkv_rope_projection(
     x, w_qkv, b_qkv, index, *, num_heads, kv_heads, rope_theta=None,
+    w_scale=None,
 ):
     """The decode step's QKV projection + bias + RoPE (K2 on a CUDA
     tensor, `qkv_rope_reference` on a CPU tensor). Returns (q, k_new,
-    v_new) in the layouts of `qkv_rope_reference`."""
+    v_new) in the layouts of `qkv_rope_reference`. `w_scale` ([dout]
+    f32) is the per-output-channel scale row of an int8 weight (or a
+    row of ones beside a full-precision one, the "sim" arm); an int8
+    weight without it raises."""
+    if w_qkv.dtype == torch.int8 and w_scale is None:
+        raise ValueError("an int8 w_qkv needs its w_scale row")
     if x.device.type == "cpu":
         return qkv_rope_reference(
             x, w_qkv, b_qkv, index, num_heads=num_heads,
-            kv_heads=kv_heads, rope_theta=rope_theta,
+            kv_heads=kv_heads, rope_theta=rope_theta, w_scale=w_scale,
         )
-    _require_cuda(x, w_qkv, b_qkv, index)
+    _require_cuda(x, w_qkv, b_qkv, index, w_scale)
     bsz, steps, dm = x.shape
     dout = w_qkv.shape[1]
     heads = num_heads + 2 * kv_heads
     if w_qkv.shape[0] != dm or dout % heads != 0:
         raise ValueError(f"w_qkv shape {tuple(w_qkv.shape)} does not fit x")
     hd = dout // heads
-    if hd % 8 != 0 or hd > 128:
-        raise ValueError(f"head_dim {hd} must be a multiple of 8 and <= 128")
-    if w_qkv.dtype != x.dtype or (
+    if hd % _vector_elems(w_qkv) != 0 or hd > 128:
+        raise ValueError(
+            f"head_dim {hd} must be a multiple of {_vector_elems(w_qkv)} "
+            f"(one 16-byte load) and <= 128"
+        )
+    int8 = w_qkv.dtype == torch.int8
+    if (not int8 and w_qkv.dtype != x.dtype) or (
         b_qkv is not None and b_qkv.dtype != x.dtype
     ):
-        raise TypeError("x, w_qkv and b_qkv must share one dtype")
+        raise TypeError(
+            "x, w_qkv and b_qkv must share one dtype (or an int8 w_qkv)"
+        )
     if not w_qkv.is_contiguous() or w_qkv.data_ptr() % 16:
         raise ValueError(
             "w_qkv must be contiguous ([d_model, dout]) and 16-byte aligned"
         )
+    if w_scale is not None:
+        if w_scale.dtype != torch.float32 or tuple(w_scale.shape) != (dout,):
+            raise ValueError(
+                f"w_scale must be f32 [{dout}]; got {w_scale.dtype} "
+                f"{tuple(w_scale.shape)}"
+            )
+        w_scale = w_scale.contiguous()
     x = x.contiguous()
     bias = None if b_qkv is None else b_qkv.contiguous()
     dev = x.device
@@ -566,20 +745,22 @@ def qkv_rope_projection(
     v = torch.empty_like(k)
     k_per, ksplit = _split(dm, heads * -(-M // 16), dev, quantum=32)
     partial = torch.empty(ksplit, M, dout, dtype=torch.float32, device=dev)
+    arm = "qkv_rope_int8" if int8 else "qkv_rope"
     fn = _kernel_fn(
-        "qkv_rope", "qkv_rope_" + _suffix(x),
-        [_P] * 4 + [ctypes.c_float] + [_P] * 4 + [_I] * 8 + [_P],
+        "qkv_rope", ("qkv_rope_i8_" if int8 else "qkv_rope_") + _suffix(x),
+        [_P] * 5 + [ctypes.c_float] + [_P] * 4 + [_I] * 8 + [_P],
     )
     code = fn(
         x.data_ptr(), w_qkv.data_ptr(),
         None if bias is None else bias.data_ptr(),
+        None if w_scale is None else w_scale.data_ptr(),
         index.data_ptr(), 0.0 if rope_theta is None else float(rope_theta),
         partial.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         M, dm, num_heads, kv_heads, steps, hd, ksplit, k_per,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _check(code, "qkv_rope")
-    LAUNCHES["qkv_rope"] += 1
+    _check(code, arm)
+    LAUNCHES[arm] += 1
     return q, k, v
 
 
@@ -592,22 +773,28 @@ def fused_qkv_paged_attention(
 
     x: [batch, steps <= MAX_KERNEL_STEPS, d_model]; w_qkv: [d_model,
     d_model + 2 * kv_dim] ([q | k | v] column blocks); b_qkv: [dout] or
-    None; pools/table/index as `paged_decode_attention`. Returns (o
-    [batch, heads, steps, head_dim], k_new, v_new [batch, kv_heads,
-    steps, head_dim]): o already attends to the fresh rows, and the
-    CALLER scatters k_new/v_new into the pools. On a CUDA tensor: K2,
-    then K1 with the fresh rows injected; on a CPU tensor:
-    `fused_qkv_paged_reference`."""
-    if w_scale is not None or k_scales is not None or v_scales is not None:
-        raise NotImplementedError(_INT8_TODO)
+    None; pools/table/index/scales as `paged_decode_attention`; `w_scale`
+    as `qkv_rope_projection`. Returns (o [batch, heads, steps,
+    head_dim], k_new, v_new [batch, kv_heads, steps, head_dim] in x's
+    dtype): o already attends to the fresh rows, at full precision also
+    over a quantized pool, and the CALLER scatters (and there quantizes)
+    k_new/v_new into the pools. On a CUDA tensor: K2, then K1 with the
+    fresh rows injected (their scale columns pinned to 1.0); on a CPU
+    tensor: `fused_qkv_paged_reference`."""
+    _check_pool_scales(k_pool, v_pool, k_scales, v_scales)
+    if w_qkv.dtype == torch.int8 and w_scale is None:
+        raise ValueError("an int8 w_qkv needs its w_scale row")
     if x.device.type == "cpu":
         return fused_qkv_paged_reference(
             x, w_qkv, b_qkv, k_pool, v_pool, table, index,
             num_heads=num_heads, rope_theta=rope_theta,
+            w_scale=w_scale, k_scales=k_scales, v_scales=v_scales,
         )
     q, k_new, v_new = qkv_rope_projection(
         x, w_qkv, b_qkv, index, num_heads=num_heads,
-        kv_heads=k_pool.shape[1], rope_theta=rope_theta,
+        kv_heads=k_pool.shape[1], rope_theta=rope_theta, w_scale=w_scale,
     )
-    o = _paged_attention_cuda(q, k_pool, v_pool, table, index, k_new, v_new)
+    o = _paged_attention_cuda(
+        q, k_pool, v_pool, table, index, k_new, v_new, k_scales, v_scales
+    )
     return o, k_new, v_new
