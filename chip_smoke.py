@@ -6,7 +6,12 @@ Run from the root of the repository on a machine with one CUDA GPU and
 the CUDA toolkit (`nvcc`). It:
 
 1. builds the port's kernels from `walkai_nos_tpu_torch/csrc/` (nvcc,
-   sm_90a) and prints the build seconds and the ptxas resource report;
+   sm_90a) and prints the build seconds, the ptxas resource report per
+   kernel and, from `cuobjdump -sass`, the tensor-core instructions
+   (HGMMA, HMMA) of each backward kernel; then counts, under
+   `torch.profiler` and before any other profiler session, the device
+   kernels of three attention backward calls at the ViT's shape: K5 and
+   K6, once each a call, and nothing else;
 2. holds each LM kernel (K1 paged attention, K2 QKV projection + RoPE) and
    the fused composition against its plain PyTorch version at the
    serving shapes of TinyLlama-1.1B (bf16, 32 heads, 4 kv heads,
@@ -48,11 +53,15 @@ the CUDA toolkit (`nvcc`). It:
    token, the share of tokens equal to the bf16 engine's;
 6c. in bf16 at 4 layers, "int8-sim" KV and weights give the unquantized
    engine's tokens on the fused route and on the unfused one;
-7. holds K3 (packed ViT attention), K4 (flash forward + lse), K5 (dq)
-   and K6 (dk/dv) against their plain versions at the ViT's shapes (batch
-   32, 296 tokens, 6 heads of 64) in bf16 and f32, plus a causal sq != sk
-   shape and a kv_len < sk shape; checks that two backward runs give
-   bitwise-identical gradients; times kernel, plain version and SDPA;
+7. holds K3 (packed ViT attention), K4 (flash forward + lse), K5 (dq and
+   the row term D') and K6 (dk/dv) against their plain versions at the
+   ViT's shapes (batch 32, 296 tokens, 6 heads of 64) in bf16 and f32,
+   plus a causal sq != sk shape and a kv_len < sk shape; checks that two
+   backward runs give bitwise-identical gradients; times kernel, plain
+   version and SDPA,
+   and for the backward also the K5 + K6 pair against SDPA's backward and
+   the eager D' pass K5 absorbed, at the ViT's shape and at LM-training
+   width (causal, batch 2, 2048 tokens, 32 heads of 64);
 8. serves 64 requests of 1-8 images (sizes from --seed, 8 client
    threads) through the ViT micro-batcher at YOLOS-small width (12
    layers, random weights cast to bf16 once), checks every request, each
@@ -82,6 +91,7 @@ import contextlib
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -107,6 +117,52 @@ ROTATE = 8  # input copies cycled while timing, to keep L2 (50 MB) cold
 
 def _fail(msg: str) -> None:
     raise RuntimeError(msg)
+
+
+def _kernel_name(mangled: str) -> str:
+    """`name<template args>` of a mangled kernel symbol, for reports."""
+    m = re.search(r"\d+([A-Za-z_]\w*?)(?:I(\w+?)EE|Ev|EP|$)", mangled.split("_cu_")[-1])
+    if not m:
+        return mangled[:60]
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
+def _demangled_name(name: str) -> str:
+    """`name<template args>` of a profiler's demangled kernel name."""
+    m = re.search(r"(?:^|::|\s)(\w+(?:<[^>]*>)?)\(", name)
+    return m.group(1) if m else name[:60]
+
+
+def _ptxas_report(log: str) -> list:
+    """One line per kernel of a ptxas -v log: registers, shared memory,
+    spills."""
+    lines, name = [], ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = _kernel_name(line.split("'")[1])
+        elif "registers" in line or "smem" in line or "spill" in line:
+            lines.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return lines
+
+
+def _tensor_core_counts(lib_path: str) -> dict:
+    """{kernel: {"HGMMA": n, "HMMA": n}} in a built library's SASS (the
+    products that run on tensor cores), or the reason there is none."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return {"not available": str(e)[:200]}
+    counts, name = {}, ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = _kernel_name(line.split("Function :")[1].strip())
+        for op in ("HGMMA", "HMMA"):
+            if f" {op}." in line:
+                counts.setdefault(name, {}).setdefault(op, 0)
+                counts[name][op] += 1
+    return counts
 
 
 def _timed(fn, iters: int, warm: int = 2) -> float:
@@ -1014,23 +1070,6 @@ def _device_rows(prof) -> list:
     return sorted(rows, reverse=True)
 
 
-def _profiled_ms(fn, iters: int, warm: int = 2) -> float:
-    """Mean device milliseconds per call, summed from the kernels that
-    `iters` eager calls ran under torch.profiler: for work that a CUDA
-    graph cannot capture (an autograd backward of a graph made outside
-    the capture) and whose eager loop would time the host."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for i in range(warm):
-        fn(i)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    return sum(r[0] for r in _device_rows(prof)) / 1e3 / iters
-
-
 def _profile_summary(prof, wall: float, table_name: str) -> dict:
     """Device-busy share of a profiled window (device kernel time over
     wall time) and the kernels that took the most device time; the full
@@ -1075,11 +1114,16 @@ def unfused_phase(ContinuousBatcher, DecoderLM, da, cfg, seed: int) -> dict:
 # The ViT detector at YOLOS-small width: batch 32, 196 patches + 100
 # detection tokens, 6 heads of 64.
 VIT_B, VIT_S, VIT_H, VIT_D = 32, 296, 6, 64
+# The backward's second timing shape, at LM-training width: causal,
+# (batch, seq, heads, head_dim), K/V repeated to all heads.
+LM_TRAIN_SHAPE = (2, 2048, 32, 64)
 # Gradients of the training phase's check: per parameter tensor, max
 # |kernel path - plain path| <= GRAD_REL * max |plain path|. The two paths
-# run the same bf16 model and differ only inside attention (the kernels
-# keep probabilities in f32, the plain version rounds them to bf16), and
-# that difference passes through 12 layers of bf16 backward.
+# run the same bf16 model and differ only inside attention (the forward
+# kernels keep probabilities in f32 where the plain version rounds them to
+# bf16; the backward kernels round P and dS to bf16 for the tensor cores
+# where the plain version keeps them in f32), and that difference passes
+# through 12 layers of bf16 backward.
 GRAD_REL = 5e-2
 
 
@@ -1094,6 +1138,40 @@ def _plain_vit_attention(vit_mod, fa):
         yield
     finally:
         vit_mod.flash_attention_packed = kernel_path
+
+
+def backward_launch_check(fa, seed: int) -> dict:
+    """A backward on the card is two device kernels, K5 then K6, and no
+    other device work (no eager D' pass): three backward calls at the
+    ViT's shape under the profiler, run before any other profiler session
+    of the script (after the serving phases' sessions it has been seen to
+    record no kernel at all). Every kernel it sees must be K5 or K6, and
+    neither may run more than once a call; if it sees none, the count is
+    "not measured" and the card test `test_backward_is_two_launches`
+    holds the rule."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    q, k, v, g = (torch.randn(VIT_B, VIT_H, VIT_S, VIT_D, generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(4))
+    out, lse = fa._flash_fwd_cuda(q, k, v, False, VIT_S)
+    fa._flash_bwd_cuda(q, k, v, out, lse, g, None, False, VIT_S)
+    torch.cuda.synchronize()
+    calls = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fa._flash_bwd_cuda(q, k, v, out, lse, g, None, False, VIT_S)
+        torch.cuda.synchronize()
+    kernels = {n: c for _, c, n in _device_rows(prof)}
+    if kernels and (
+            not all("flash_dq" in n or "flash_dkv" in n for n in kernels)
+            or max(kernels.values()) > calls):
+        _fail(f"{calls} backward calls ran {kernels}, not K5 and K6 once each")
+    return {"kernel": "flash_dq+flash_dkv", "case": "vit", "dtype": "bfloat16",
+            "device_kernels_per_call": {
+                _demangled_name(n): c / calls for n, c in kernels.items()}
+            or "not measured"}
 
 
 def attention_kernel_phase(fa, seed: int) -> tuple[list, list]:
@@ -1139,17 +1217,20 @@ def attention_kernel_phase(fa, seed: int) -> tuple[list, list]:
             # lse is f32 on both sides, from the same inputs.
             check("flash_fwd", case + "/lse", dtype, [lse], [rl], rule=torch.float32)
             g_lse = rnd(bb, h, sq, dtype=torch.float32) if causal else None
-            dcap = fa._row_term(g, ro, g_lse)
-            dq = fa._flash_dq_cuda(q, k, v, g, rl, dcap, causal, kv_len)
+            dq, dcap = fa._flash_dq_cuda(q, k, v, g, ro, rl, g_lse, causal, kv_len)
             dk, dv = fa._flash_dkv_cuda(q, k, v, g, rl, dcap, causal, kv_len)
             wq, wk, wv = fa.flash_backward_reference(
                 q, k, v, ro, rl, g, causal=causal, kv_len=kv_len, g_lse=g_lse
             )
             check("flash_dq", case, dtype, [dq], [wq])
+            # K5's D' is f32 on both sides, from the same inputs.
+            check("flash_dq", case + "/dcap", dtype, [dcap],
+                  [fa._row_term(g, ro, g_lse)], rule=torch.float32)
             check("flash_dkv", case, dtype, [dk, dv], [wk, wv])
     torch.cuda.synchronize()
 
-    # Bitwise repeatability of the backward (no atomics: a fixed order).
+    # Bitwise repeatability of the backward (no atomics: a fixed order),
+    # and the backward on the card is two kernels, K5 then K6.
     q, k, v, g = (rnd(b, h, s, d) for _ in range(4))
     out, lse = fa._flash_fwd_cuda(q, k, v, False, s)
     runs = [fa._flash_bwd_cuda(q, k, v, out, lse, g, None, False, s) for _ in range(2)]
@@ -1157,20 +1238,22 @@ def attention_kernel_phase(fa, seed: int) -> tuple[list, list]:
         _fail("two backward runs gave different gradients")
     checks.append({"kernel": "flash_dq+flash_dkv", "case": "vit", "dtype": "bfloat16",
                    "bitwise_repeatable": True})
+    del q, k, v, g, out, lse, runs
 
-    # Timing at the ViT's shape, bf16, inputs cycled over ROTATE copies.
+    rows += _attention_timings(fa, rnd, b, s, h, d)
+    rows += _backward_timings(fa, rnd, "lm_causal", *LM_TRAIN_SHAPE, causal=True)
+    torch.cuda.empty_cache()
+    return checks, rows
+
+
+def _attention_timings(fa, rnd, b, s, h, d) -> list:
+    """K3-K6, the K5 + K6 pair and the eager D' pass at the ViT's shape,
+    bf16, inputs cycled over ROTATE copies: kernel, plain version and
+    SDPA (the backward rows: SDPA's whole backward, its D pass included)."""
     qkvs = [rnd(b, s, 3 * h * d) for _ in range(ROTATE)]
     packed_views = [fa.packed_unpack(x, h) for x in qkvs]
     qkv4 = [tuple(t.contiguous() for t in views) for views in packed_views]
-    gs = [rnd(b, h, s, d) for _ in range(ROTATE)]
-    fwd = [fa._flash_fwd_cuda(*t, False, s) for t in qkv4]
-    dcaps = [fa._row_term(g_, o, None) for g_, (o, _) in zip(gs, fwd)]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_graphs = []
-    for t in qkv4:
-        leaves = [x.detach().clone().requires_grad_(True) for x in t]
-        lib_graphs.append((leaves, sdpa(*leaves)))
-    torch.cuda.synchronize()
 
     def k3(i):
         fa._packed_cuda(qkvs[i % ROTATE], h)
@@ -1190,49 +1273,106 @@ def attention_kernel_phase(fa, seed: int) -> tuple[list, list]:
     def k4_lib(i):
         sdpa(*qkv4[i % ROTATE])
 
-    def k5(i):
-        j = i % ROTATE
-        fa._flash_dq_cuda(*qkv4[j], gs[j], fwd[j][1], dcaps[j], False, s)
-
-    def k6(i):
-        j = i % ROTATE
-        fa._flash_dkv_cuda(*qkv4[j], gs[j], fwd[j][1], dcaps[j], False, s)
-
-    def bwd_plain(i):
-        j = i % ROTATE
-        fa.flash_backward_reference(*qkv4[j], fwd[j][0], fwd[j][1], gs[j])
-
-    def bwd_lib(i):
-        j = i % ROTATE
-        leaves, o = lib_graphs[j]
-        torch.autograd.grad(o, leaves, gs[j], retain_graph=True)
-
     bhsd = b * h * s * d * 2  # one bf16 [b, h, s, d] tensor
-    rows_f32 = b * h * s * 4  # one f32 [b, h, s] tensor
     pairs = b * h * s * s * d
-    bwd_plain_ms = _timed(bwd_plain, 3)
-    bwd_lib_ms = _profiled_ms(bwd_lib, 10)
+    rows = []
     for name, fn, plain_ms, lib_ms, nbytes, flops in (
         ("packed_attention", k3, _timed(k3_plain, 3), _timed(k3_lib, 10),
          b * s * 3 * h * d * 2 + b * s * h * d * 2, 4.0 * pairs),
         ("flash_fwd", k4, _timed(k4_plain, 3), _timed(k4_lib, 10),
-         4 * bhsd + rows_f32, 4.0 * pairs),
-        ("flash_dq", k5, bwd_plain_ms, bwd_lib_ms,
-         5 * bhsd + 2 * rows_f32, 6.0 * pairs),
-        ("flash_dkv", k6, bwd_plain_ms, bwd_lib_ms,
-         6 * bhsd + 2 * rows_f32, 8.0 * pairs),
+         4 * bhsd + b * h * s * 4, 4.0 * pairs),
     ):
         bound_ms, bound_by = _bound(nbytes, flops)
         rows.append({
-            "kernel": name, "shape": f"b{b} s{s} h{h} d{d} bf16",
+            "kernel": name, "case": "vit", "shape": f"b{b} s{s} h{h} d{d} bf16",
             "ms": _timed(fn, 10), "plain_ms": plain_ms, "library_ms": lib_ms,
             "host_call_ms": _host_timed(fn, 20),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": nbytes, "flops": flops,
         })
-    del qkvs, packed_views, qkv4, gs, fwd, dcaps, lib_graphs
+    del qkvs, packed_views, qkv4
     torch.cuda.empty_cache()
-    return checks, rows
+    return rows + _backward_timings(fa, rnd, "vit", b, s, h, d, causal=False)
+
+
+def _backward_timings(fa, rnd, case, b, s, h, d, *, causal) -> list:
+    """K5, K6 and the pair (`_flash_bwd_cuda`) at one bf16 shape, beside
+    the plain backward and SDPA's backward (both with their D pass); at
+    the ViT's shape also the eager D' pass K5 absorbed. Bounds count each
+    input read once and each output written once, and the products over
+    the (query, key) pairs this shape's mask leaves visible."""
+    qkv4 = [tuple(rnd(b, h, s, d) for _ in range(3)) for _ in range(ROTATE)]
+    gs = [rnd(b, h, s, d) for _ in range(ROTATE)]
+    fwd = [fa._flash_fwd_cuda(*t, causal, s) for t in qkv4]
+    dcaps = [fa._flash_dq_cuda(*t, g_, o, lse, None, causal, s)[1]
+             for t, g_, (o, lse) in zip(qkv4, gs, fwd)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_leaves = [[x.detach().clone().requires_grad_(True) for x in t] for t in qkv4]
+    torch.cuda.synchronize()
+
+    def k5(i):
+        j = i % ROTATE
+        fa._flash_dq_cuda(*qkv4[j], gs[j], fwd[j][0], fwd[j][1], None, causal, s)
+
+    def k6(i):
+        j = i % ROTATE
+        fa._flash_dkv_cuda(*qkv4[j], gs[j], fwd[j][1], dcaps[j], causal, s)
+
+    def pair(i):
+        j = i % ROTATE
+        fa._flash_bwd_cuda(*qkv4[j], fwd[j][0], fwd[j][1], gs[j], None, causal, s)
+
+    def bwd_plain(i):
+        j = i % ROTATE
+        fa.flash_backward_reference(*qkv4[j], fwd[j][0], fwd[j][1], gs[j], causal=causal)
+
+    def lib_fwd(i):
+        sdpa(*lib_leaves[i % ROTATE], is_causal=causal)
+
+    def lib_fwd_bwd(i):
+        j = i % ROTATE
+        o = sdpa(*lib_leaves[j], is_causal=causal)
+        torch.autograd.grad(o, lib_leaves[j], gs[j])
+
+    def row_term(i):
+        j = i % ROTATE
+        fa._row_term(gs[j], fwd[j][0], None)
+
+    bhsd = b * h * s * d * 2  # one bf16 [b, h, s, d] tensor
+    rows_f32 = b * h * s * 4  # one f32 [b, h, s] tensor
+    # (query, key) pairs the mask leaves visible, times d.
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s) * d
+    shape = f"b{b} s{s} h{h} d{d} bf16" + (" causal" if causal else "")
+    bwd_plain_ms = _timed(bwd_plain, 2)
+    # SDPA's backward (its D pass included): forward + backward captured
+    # in a CUDA graph, less the same forward captured alone.
+    bwd_lib_ms = _timed(lib_fwd_bwd, 10) - _timed(lib_fwd, 10)
+    timed = [
+        # K5: reads q, k, v, dO, O, lse; writes dq, D'.
+        ("flash_dq", k5, bwd_plain_ms, bwd_lib_ms, 6 * bhsd + 2 * rows_f32, 6.0 * pairs),
+        # K6: reads q, k, v, dO, lse, D'; writes dk, dv.
+        ("flash_dkv", k6, bwd_plain_ms, bwd_lib_ms, 6 * bhsd + 2 * rows_f32, 8.0 * pairs),
+        # The backward as a function: reads q, k, v, O, dO, lse; writes
+        # dq, dk, dv; five products (S, dP, dq, dk, dv).
+        ("flash_dq+flash_dkv", pair, bwd_plain_ms, bwd_lib_ms,
+         8 * bhsd + rows_f32, 10.0 * pairs),
+    ]
+    if case == "vit":
+        # The eager D' pass of the earlier design: reads dO and O, writes D'.
+        timed.append(("row_term_eager", row_term, None, None, 2 * bhsd + rows_f32, 0.0))
+    rows = []
+    for name, fn, plain_ms, lib_ms, nbytes, flops in timed:
+        bound_ms, bound_by = _bound(nbytes, flops)
+        rows.append({
+            "kernel": name, "case": case, "shape": shape,
+            "ms": _timed(fn, 10), "plain_ms": plain_ms, "library_ms": lib_ms,
+            "host_call_ms": _host_timed(fn, 20),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "flops": flops,
+        })
+    del qkv4, gs, fwd, dcaps, lib_leaves
+    torch.cuda.empty_cache()
+    return rows
 
 
 def vit_serving_phase(vit_mod, vs, fa, seed: int) -> dict:
@@ -1479,13 +1619,16 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
 
     t0 = time.monotonic()
-    _build.load_kernels()
+    libs = _build.load_kernels()
     print(json.dumps({"build_s": time.monotonic() - t0}), flush=True)
     for name, log in _build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}", flush=True)
+        for line in _ptxas_report(log):
+            print(f"ptxas {name}: {line}", flush=True)
+    print(json.dumps({"tensor_core_instructions": _tensor_core_counts(
+        libs["flash_attention_bwd"]._name)}), flush=True)
 
+    launch_check = backward_launch_check(fa, args.seed)
+    print(json.dumps({"check": launch_check}), flush=True)
     checks, rows = kernel_phase(da, args.seed)
     qchecks, qrows, quant_dense = int8_kernel_phase(da, lm_mod, args.seed)
     dchecks, drows = dense_kernel_phase(da, args.seed)
@@ -1573,7 +1716,7 @@ def main() -> int:
                       vit_train["launches_20_steps"]["flash_dkv"]),
     }
     for name, (source, replaces, launches) in vit_src.items():
-        t = next(r for r in vrows if r["kernel"] == name)
+        t = next(r for r in vrows if r["kernel"] == name and r["case"] == "vit")
         err = max(
             c["max_abs_err"] for c in vchecks
             if c["kernel"] == name and c["dtype"] == "bfloat16" and "max_abs_err" in c
@@ -1601,7 +1744,8 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({
-            "card": smi, "checks": checks + vchecks, "timing": rows + vrows,
+            "card": smi, "checks": [launch_check] + checks + vchecks,
+            "timing": rows + vrows,
             "serving": serve, "generate": generate, "speculative": speculative,
             "dense_serving": dense_serve, "exactness_f32": exact,
             "unfused": unfused, "int8_serving": int8_serve,

@@ -23,15 +23,28 @@ torch.set_num_threads(1)
 FWD_TOL = 1e-5
 GRAD_REL, GRAD_ABS = 1e-4, 1e-5
 
-# (causal, sq, sk, kv_len): the JAX kernel runs with 16-row blocks, so
-# causal block skipping and the kv_len tail skip are exercised.
+# (causal, sq, sk, kv_len, head_dim): the JAX kernel runs with 16-row
+# blocks where the lengths allow, so causal block skipping and the kv_len
+# tail skip are exercised; lengths that 16 does not divide (the edges the
+# CUDA kernels mask: a tile narrower than one 16-row fragment, fewer keys
+# than one fragment) run as one full-length block. The head widths the
+# kernels zero-pad (40 in a 64-wide tile) or take whole (128).
 CASES = {
-    "full": (False, 48, 48, 48),
-    "causal": (True, 48, 48, 48),
-    "causal_sq_lt_sk": (True, 32, 64, 64),
-    "kv_tail": (False, 48, 64, 37),
-    "causal_kv_tail": (True, 64, 64, 50),
+    "full": (False, 48, 48, 48, 32),
+    "causal": (True, 48, 48, 48, 32),
+    "causal_sq_lt_sk": (True, 32, 64, 64, 32),
+    "kv_tail": (False, 48, 64, 37, 32),
+    "causal_kv_tail": (True, 64, 64, 50, 32),
+    "s17": (False, 17, 17, 17, 32),
+    "s8_causal": (True, 8, 8, 8, 32),
+    "d40": (False, 48, 48, 48, 40),
+    "d128_causal": (True, 32, 32, 32, 128),
 }
+
+
+def _blocks(sq, sk):
+    """The JAX kernel's (block_q, block_k) for a case."""
+    return (16, 16) if sq % 16 == 0 and sk % 16 == 0 else (sq, sk)
 
 
 def _qkv(sq, sk, kv_len, *, b=2, h=2, d=32, seed=0, scale=1.0):
@@ -64,11 +77,11 @@ def _assert_grads(got, want):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_flash_forward_and_lse_match_pallas(case):
-    causal, sq, sk, kv_len = CASES[case]
-    q, k, v = _qkv(sq, sk, kv_len, seed=1)
+    causal, sq, sk, kv_len, d = CASES[case]
+    q, k, v = _qkv(sq, sk, kv_len, d=d, seed=1)
     jo, jl = jattn._flash_pallas_impl(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, 16, 16,
-        True, kv_len,
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal,
+        *_blocks(sq, sk), True, kv_len,
     )
     to, tl = tattn.flash_reference(*_t(q, k, v), causal=causal, kv_len=kv_len)
     assert _max_err(to, jo) <= FWD_TOL
@@ -95,12 +108,12 @@ def test_causal_rows_that_see_no_key_take_the_reference_mean():
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_flash_attention_grads_match_pallas(case):
-    causal, sq, sk, kv_len = CASES[case]
-    q, k, v = _qkv(sq, sk, kv_len, seed=3)
+    causal, sq, sk, kv_len, d = CASES[case]
+    q, k, v = _qkv(sq, sk, kv_len, d=d, seed=3)
     w = np.random.default_rng(4).standard_normal(q.shape).astype(np.float32)
 
     def jloss(q, k, v):
-        out = jattn._flash_pallas(q, k, v, causal, 16, 16, True, kv_len)
+        out = jattn._flash_pallas(q, k, v, causal, *_blocks(sq, sk), True, kv_len)
         return jnp.sum(w * out)
 
     want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))

@@ -9,8 +9,10 @@ it runs on its own:
 
 Tolerances: f32 cases differ only in summation order (1e-4 on O(1)
 values); bf16 cases also round at other points (the plain attention
-rounds probabilities to bf16, the kernel keeps them in f32): a few bf16
-ulps, 3e-2 on O(1) values.
+rounds probabilities to bf16 where the forward kernels keep them in f32;
+the backward kernels round P and dS to bf16 for the tensor cores where
+the plain backward keeps them in f32): a few bf16 ulps, 3e-2 on O(1)
+values.
 """
 
 import copy
@@ -409,6 +411,13 @@ ATTN_CASES = {
     "kv_tail": (2, 2, 130, 192, 64, False, 150),
     "d128": (1, 2, 96, 160, 128, True, 160),
     "d40": (1, 2, 77, 77, 40, False, 77),
+    # The last tile narrower than one 16-row mma fragment; fewer keys
+    # than one fragment; a long causal sequence at LM-training width; the
+    # wide head at the ViT's length.
+    "s17": (2, 2, 17, 17, 64, False, 17),
+    "sk8_causal": (2, 2, 8, 8, 64, True, 8),
+    "lm_causal": (1, 4, 1024, 1024, 64, True, 1024),
+    "d128_s296": (1, 2, 296, 296, 128, False, 296),
 }
 
 
@@ -488,6 +497,78 @@ def test_packed_forward_and_grad_match_plain(cuda, dtype):
     y = qkv.detach().cpu().float().requires_grad_(True)
     fa.flash_attention_packed(y, h).backward(g.cpu().float())
     _close_rel(x.grad, y.grad.to(cuda), dtype, "dqkv")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, col0", [(64, 1), (36, 0), (128, 1)])
+def test_backward_of_unaligned_rows_matches_plain(cuda, d, col0):
+    """Rows whose start is not 16-byte aligned (views cut one column into
+    a wider buffer) and rows of d * 2 bytes not a multiple of 16 take the
+    kernels' per-element load path, at both head-width arms; bf16, causal
+    with sq < sk."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    b, h, sq, sk = 2, 3, 90, 130
+
+    def view(s):
+        wide = torch.randn(b, h, s, d + 8, generator=gen, device=cuda)
+        return wide.to(torch.bfloat16)[..., col0:col0 + d]
+
+    q, k, v, g = view(sq), view(sk), view(sk), view(sq)
+    out, lse = fa.flash_reference(q, k, v, causal=True)
+    got = fa._flash_bwd_cuda(q, k, v, out, lse, g, None, True, sk)
+    want = fa.flash_backward_reference(q, k, v, out, lse, g, causal=True)
+    for a, w, n in zip(got, want, ("dq", "dk", "dv")):
+        _close_rel(a, w, torch.bfloat16, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["vit", "causal_sq_gt_sk", "d40"])
+def test_dq_kernel_writes_the_row_term(cuda, dtype, name):
+    """K5's D' buffer is `_row_term(g, out, g_lse)`: f32 on both sides from
+    the same inputs, other summation order."""
+    c = _attn_case(cuda, dtype, name, seed=7)
+    out, lse = fa.flash_reference(
+        c["q"], c["k"], c["v"], causal=c["causal"], kv_len=c["kv_len"]
+    )
+    _, dcap = fa._flash_dq_cuda(
+        c["q"], c["k"], c["v"], c["g"], out, lse, c["g_lse"], c["causal"],
+        c["kv_len"],
+    )
+    assert dcap.dtype == torch.float32 and dcap.shape == lse.shape
+    _close_rel(dcap, fa._row_term(c["g"], out, c["g_lse"]), torch.float32, "dcap")
+
+
+@pytest.mark.cuda
+def test_backward_is_two_launches(cuda):
+    """The backward of a CUDA tensor is K5 then K6 and no other device
+    work: one launch of each counted, two kernels on the device."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    c = _attn_case(cuda, torch.bfloat16, "causal", seed=8)
+    out, lse = fa._flash_fwd_cuda(c["q"], c["k"], c["v"], True, c["kv_len"])
+    args = (c["q"], c["k"], c["v"], out, lse, c["g"], c["g_lse"], True, c["kv_len"])
+    fa._flash_bwd_cuda(*args)  # the first call builds and loads the kernels
+    torch.cuda.synchronize()
+    # One warm-up step, then one recorded step of one backward.
+    events = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: events.extend(p.events())) as prof:
+        for _ in range(2):
+            fa.reset_launch_counts()
+            fa._flash_bwd_cuda(*args)
+            torch.cuda.synchronize()
+            prof.step()
+    assert fa.LAUNCHES == {
+        "packed_attention": 0, "flash_fwd": 0, "flash_dq": 1, "flash_dkv": 1,
+    }
+    kernels = [
+        e.name for e in sorted(events, key=lambda e: e.time_range.start)
+        if e.device_type.name == "CUDA"
+    ]
+    assert len(kernels) == 2, kernels
+    assert "flash_dq" in kernels[0] and "flash_dkv" in kernels[1], kernels
 
 
 @pytest.mark.cuda

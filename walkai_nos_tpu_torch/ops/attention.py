@@ -14,9 +14,19 @@ Port of `walkai_nos_tpu/ops/attention.py` (the reference). Kernels
   bottom-right causal mask (blocks past the diagonal skipped) and the
   `kv_len` tail mask.
 - K5 `flash_dq` and K6 `flash_dkv` (`csrc/flash_attention_bwd.cu`)
-  replace `_flash_bwd_impl`'s `_flash_dq_kernel` and `_flash_dkv_kernel`:
-  P rebuilt from the saved logsumexp, `D' = rowsum(dO * O) - g_lse`
-  (a PyTorch reduction here, as it was an XLA one), no atomics.
+  replace `_flash_bwd_impl`: its `_flash_dq_kernel` and
+  `_flash_dkv_kernel`, and the XLA reduction in front of them. K5 also
+  computes the row term `D' = rowsum(dO * O) - g_lse` and writes it
+  (f32 [b, h, sq]) for K6, so a backward on the card is exactly two
+  launches, K5 then K6 on one stream; P is rebuilt from the saved
+  logsumexp; no atomics, bitwise repeatable. Both read ~44 MB per ViT
+  layer call (b 32, s 296, h 6, d 64) against 6.5 and 8.6 GFLOP, so
+  bytes bound them there (13.2 us each at 3.35 TB/s). Their bf16 arms
+  run every product on tensor cores (`mma.sync` with `ldmatrix`), keep
+  the operand tiles bf16 in swizzled shared memory, stream the next
+  tile with `cp.async` while the current one computes, and keep P and
+  dS in registers; their f32 arms stay CUDA-core kernels (tensor cores
+  would mean TF32, short of the f32 tolerance).
 
 The kernels address every tensor through (batch, head, row) strides with
 a unit column stride, so the packed path's backward (unpack, recompute
@@ -263,42 +273,55 @@ def _packed_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return out
 
 
-def _bwd_args(q, k, v, g, lse, dcap, causal, kv_len):
+def _bwd_args(q, k, v, g, lse, causal, kv_len):
     """Checked inputs and the shared scalar arguments of K5 and K6."""
     q, k, v, g = (_unit_cols(t) for t in (q, k, v, g))
     _check_qkv(q, k, v, kv_len)
-    _require_cuda(g, lse, dcap)
+    _require_cuda(g, lse)
     if g.shape != q.shape or g.dtype != q.dtype:
         raise ValueError("the output cotangent must match q in shape and dtype")
     b, h, sq, d = q.shape
     scalars = (b, h, sq, k.shape[2], d, kv_len, int(causal), d ** -0.5, _stream(q))
-    return q, k, v, g, lse.float().contiguous(), dcap.float().contiguous(), scalars
+    return q, k, v, g, lse.float().contiguous(), scalars
 
 
 def _empty_like(t: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(t, memory_format=torch.contiguous_format)
 
 
-def _flash_dq_cuda(q, k, v, g, lse, dcap, causal, kv_len, dq=None):
-    """Launch K5. dcap: D' [b, h, sq] f32; dq: optional [b, h, sq, d]
-    view to write into."""
-    q, k, v, g, lse, dcap, scalars = _bwd_args(q, k, v, g, lse, dcap, causal, kv_len)
+def _flash_dq_cuda(q, k, v, g, out, lse, g_lse, causal, kv_len, dq=None):
+    """Launch K5: dq, and D' = rowsum(dO * O) - g_lse, the f32 [b, h, sq]
+    row term K6 reads. g_lse: the lse cotangent or None; dq: optional
+    [b, h, sq, d] view to write into. Returns (dq, dcap)."""
+    q, k, v, g, lse, scalars = _bwd_args(q, k, v, g, lse, causal, kv_len)
+    out = _unit_cols(out)
+    _require_cuda(out, g_lse)
+    if out.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError("the forward output must match q in shape and dtype")
+    if g_lse is not None:
+        g_lse = g_lse.float().contiguous()
     dq = _empty_like(q) if dq is None else dq
+    dcap = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     fn = _kernel_fn(
-        "flash_attention_bwd", "flash_dq_" + _suffix(q), [_P] * 8 + [_I] * 7 + [_F, _P],
+        "flash_attention_bwd", "flash_dq_" + _suffix(q), [_P] * 10 + [_I] * 7 + [_F, _P],
     )
     code = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-        dcap.data_ptr(), dq.data_ptr(), _strides(q, k, v, g, dq), *scalars,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), None if g_lse is None else g_lse.data_ptr(),
+        dcap.data_ptr(), dq.data_ptr(), _strides(q, k, v, g, out, dq), *scalars,
     )
     _check(code, "flash_dq")
     LAUNCHES["flash_dq"] += 1
-    return dq
+    return dq, dcap
 
 
 def _flash_dkv_cuda(q, k, v, g, lse, dcap, causal, kv_len, dk=None, dv=None):
-    """Launch K6; dk/dv: optional [b, h, sk, d] views to write into."""
-    q, k, v, g, lse, dcap, scalars = _bwd_args(q, k, v, g, lse, dcap, causal, kv_len)
+    """Launch K6 over the D' that K5 wrote (`dcap`, f32 [b, h, sq]; K5
+    must run first, on the same stream); dk/dv: optional [b, h, sk, d]
+    views to write into."""
+    q, k, v, g, lse, scalars = _bwd_args(q, k, v, g, lse, causal, kv_len)
+    _require_cuda(dcap)
+    dcap = dcap.float().contiguous()
     dk = _empty_like(k) if dk is None else dk
     dv = _empty_like(v) if dv is None else dv
     fn = _kernel_fn(
@@ -316,11 +339,11 @@ def _flash_dkv_cuda(q, k, v, g, lse, dcap, causal, kv_len, dk=None, dv=None):
 
 def _flash_bwd_cuda(q, k, v, out, lse, g, g_lse, causal, kv_len,
                     dq=None, dk=None, dv=None):
-    """D' in PyTorch, then K5 and K6. dq/dk/dv: optional [b, h, s, d]
-    views to write into (unit column stride); fresh tensors otherwise."""
-    _require_cuda(out, g_lse)
-    dcap = _row_term(g, out, g_lse)
-    dq = _flash_dq_cuda(q, k, v, g, lse, dcap, causal, kv_len, dq)
+    """K5 (dq and D'), then K6 (dk, dv) on the same stream: two launches
+    and no other device work for contiguous inputs. dq/dk/dv: optional
+    [b, h, s, d] views to write into (unit column stride); fresh tensors
+    otherwise."""
+    dq, dcap = _flash_dq_cuda(q, k, v, g, out, lse, g_lse, causal, kv_len, dq)
     dk, dv = _flash_dkv_cuda(q, k, v, g, lse, dcap, causal, kv_len, dk, dv)
     return dq, dk, dv
 
