@@ -1,11 +1,13 @@
 """The port's one-shot generation (`make_generate_fn` over a dense
 cache) against the JAX package's, on the same weights.
 
-Two tiny f32 configs, each built from a numpy-seeded flax tree bridged
+Three tiny f32 configs, each built from a numpy-seeded flax tree bridged
 into the port: a llama-style GQA model (rmsnorm, swiglu, rope, 4 heads
 over 2 kv heads), whose decode steps route to the dense decode kernel's
-plain version, and an LM_TINY-like MHA model with learned positions and
-`decode_kernel=True`, which routes there too. The JAX side runs its
+plain version, the same at head_dim 80 (2 heads over 1 kv head, a width
+the kernel takes since it takes any head_dim up to 256), and an
+LM_TINY-like MHA model with learned positions and `decode_kernel=True`,
+which routes there too. The JAX side runs its
 default CPU path (the XLA reference). Greedy tokens must be identical;
 prefill logits agree within 1e-4 x max|logit| + 1e-5 (f32 against f32,
 other summation orders).
@@ -32,6 +34,12 @@ CONFIGS = {
     "gqa": dict(
         vocab_size=64, hidden_dim=64, num_layers=2, num_heads=4,
         num_kv_heads=2, mlp_dim=96, max_seq_len=256, dtype="float32",
+        norm="rmsnorm", mlp="swiglu", rope=True, use_bias=False,
+        head_bias=False, layer_norm_eps=1e-5,
+    ),
+    "gqa_hd80": dict(
+        vocab_size=64, hidden_dim=160, num_layers=2, num_heads=2,
+        num_kv_heads=1, mlp_dim=96, max_seq_len=256, dtype="float32",
         norm="rmsnorm", mlp="swiglu", rope=True, use_bias=False,
         head_bias=False, layer_norm_eps=1e-5,
     ),

@@ -87,6 +87,25 @@ def test_matches_jax_and_greedy(setup, k, draft):
         assert hist[:-1].sum() == 0
 
 
+def test_verify_wider_than_the_kernel_matches_jax(setup):
+    """k = 8: the 9-position verify is wider than the decode kernel's
+    MAX_KERNEL_STEPS and takes the model's masked cache attention, as in
+    JAX; tokens and the acceptance histogram are JAX's."""
+    s = setup
+    want, jstats = jspec.make_speculative_generate_fn(
+        s["jt"], s["jd"], k=8, return_stats=True
+    )(s["tp"], s["dp"], jnp.asarray(s["prompt"]), 20)
+    got, stats = tspec.make_speculative_generate_fn(
+        s["tt"], s["td"], k=8, return_stats=True, device="cpu"
+    )(s["tp"], s["dp"], s["prompt"], 20)
+    assert got.shape == (1, 20)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), s["greedy"])
+    np.testing.assert_array_equal(
+        stats["acceptance_hist"].numpy(), np.asarray(jstats["acceptance_hist"])
+    )
+
+
 def test_accept_tokens_matches_jax():
     rng = np.random.default_rng(3)
     for k in (1, 3, 4):
@@ -129,9 +148,8 @@ def test_guards_match_jax(setup):
         gen(s["tp"], s["dp"], np.zeros((1, 4), np.int32), 251)
     out = gen(s["tp"], s["dp"], np.zeros((1, 4), np.int32), 250)
     assert out.shape == (1, 250)
-    for bad in (dict(k=0), dict(k=8)):
-        with pytest.raises(ValueError, match="k"):
-            tspec.make_speculative_generate_fn(s["tt"], s["td"], device="cpu", **bad)
+    with pytest.raises(ValueError, match="k"):
+        tspec.make_speculative_generate_fn(s["tt"], s["td"], device="cpu", k=0)
     with pytest.raises(ValueError, match="vocabulary"):
         tspec.make_speculative_generate_fn(
             s["tt"], dataclasses.replace(s["td"], vocab_size=32), device="cpu"

@@ -7,7 +7,8 @@
 //
 // What it computes: for each batch row b and each kv head, the g*steps
 // query rows of that kv head (row order (group, step), g = heads /
-// kv_heads) attend over the cache k/v[b, kv head, 0:S, :]. Query row of
+// kv_heads) attend over the cache k/v[b, kv head, 0:S, :]. Any group, any
+// steps and any head_dim up to 256, as _gqa_pallas takes them. Query row of
 // step t sees positions p <= index + t, where index is one scalar shared
 // by every row or one value per row (ragged decoding). Tiles wholly past
 // index + steps - 1 are never read; the visible range is clamped to the
@@ -28,9 +29,14 @@
 //
 // What the design does about it (the design of K1, paged_attention.cu,
 // with direct strided addressing in place of the block table):
-// - one CTA per (batch row, kv head, split): each K/V tile is loaded from
-//   device memory once, with 16-byte loads, into shared memory and serves
-//   every query row of the GQA group;
+// - one CTA per (batch row, kv head, row chunk, split): each K/V tile is
+//   loaded from device memory once, with 16-byte loads, into shared
+//   memory and serves up to 64 query rows of the GQA group. A group of
+//   more rows (a wide group at a multi-step verify) takes more chunks, in
+//   the grid's y dimension, each re-reading the tiles; the caller sizes
+//   a chunk so that its tiles fit shared memory. A head_dim whose row is
+//   not a multiple of 16 bytes loads element by element (a template
+//   switch);
 // - the tile loop is split across `nsplit` CTAs of `tps` consecutive
 //   64-row tiles (flash-decoding): rows * kv heads CTAs alone (32 at
 //   TinyLlama's generate shape) would leave most of the 132 SMs idle. A
@@ -74,9 +80,10 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
-// Partial results of one split: running max and sum per query row and
-// the unnormalised accumulator, f32.
-template <typename T>
+// Partial results of one (row chunk, split): running max and sum per query
+// row and the unnormalised accumulator, f32. kVec: 16-byte K/V loads (hd a
+// multiple of 16 bytes), else element by element.
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads) decode_attention_split_kernel(
     const T* __restrict__ q,             // [b, h, steps, hd]
     const T* __restrict__ k,             // [b, kvh, S, hd]
@@ -86,14 +93,17 @@ __global__ void __launch_bounds__(kThreads) decode_attention_split_kernel(
     float* __restrict__ l_part,          // [b, kvh, nsplit, rows]
     float* __restrict__ acc_part,        // [b, kvh, nsplit, rows, hd]
     int h, int kvh, int steps, int hd, int S, int tps, int per_row,
-    float scale) {
+    int chunk, float scale) {
   constexpr int kPad = Pad<T>::value;
+  const int nchunk = gridDim.y / kvh;
   const int row_b = blockIdx.x;
-  const int kh = blockIdx.y;
+  const int kh = blockIdx.y / nchunk;
+  const int r0 = (blockIdx.y % nchunk) * chunk;  // the chunk's first row
   const int split = blockIdx.z;
   const int nsplit = gridDim.z;
   const int g = h / kvh;
-  const int rows = g * steps;
+  const int rows_all = g * steps;
+  const int rows = min(chunk, rows_all - r0);
   const int ks = hd + kPad;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -101,6 +111,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_split_kernel(
   const int nwarps = blockDim.x >> 5;
 
   extern __shared__ float smem[];
+  // Indexed by the chunk's rows, r = 0 .. rows - 1 (query row r0 + r).
   float* q_s = smem;                    // [rows, hd]
   float* s_s = q_s + rows * hd;         // [rows, kTile] scores, then p
   float* acc = s_s + rows * kTile;      // [rows, hd]
@@ -112,8 +123,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_split_kernel(
 
   // The rows of one kv head are contiguous in q: heads kh*g .. kh*g+g-1,
   // each `steps` rows, i.e. (group, step) order.
-  const size_t qbase = (static_cast<size_t>(row_b) * h +
-                        static_cast<size_t>(kh) * g) * steps * hd;
+  const size_t qbase = ((static_cast<size_t>(row_b) * h +
+                         static_cast<size_t>(kh) * g) * steps + r0) * hd;
   for (int e = tid; e < rows * hd; e += blockDim.x) {
     q_s[e] = to_f(q[qbase + e]);
     acc[e] = 0.f;
@@ -131,28 +142,43 @@ __global__ void __launch_bounds__(kThreads) decode_attention_split_kernel(
   const int j1 = min(j0 + tps, nvis);
   const size_t cbase = (static_cast<size_t>(row_b) * kvh + kh) *
                        static_cast<size_t>(S) * hd;
-  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr int kElems = 16 / sizeof(T);  // elements per 16-byte load
 
   for (int j = j0; j < j1; ++j) {
     const int row0 = j * kTile;
     const int nrows = min(kTile, S - row0);
     __syncthreads();  // the previous tile's readers are done
-    for (int e = tid * kVec; e < kTile * hd; e += blockDim.x * kVec) {
-      const int c = e / hd;  // hd % kVec == 0: one row per vector
-      const int d0 = e - c * hd;
-      uint4 ku = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vu = ku;
-      if (c < nrows) {
-        const size_t off = cbase + static_cast<size_t>(row0 + c) * hd + d0;
-        ku = *reinterpret_cast<const uint4*>(k + off);
-        vu = *reinterpret_cast<const uint4*>(v + off);
-      }
-      const T* kv = reinterpret_cast<const T*>(&ku);
-      const T* vv = reinterpret_cast<const T*>(&vu);
+    if constexpr (kVec) {
+      for (int e = tid * kElems; e < kTile * hd; e += blockDim.x * kElems) {
+        const int c = e / hd;  // hd % kElems == 0: one row per vector
+        const int d0 = e - c * hd;
+        uint4 ku = make_uint4(0u, 0u, 0u, 0u);
+        uint4 vu = ku;
+        if (c < nrows) {
+          const size_t off = cbase + static_cast<size_t>(row0 + c) * hd + d0;
+          ku = *reinterpret_cast<const uint4*>(k + off);
+          vu = *reinterpret_cast<const uint4*>(v + off);
+        }
+        const T* kv = reinterpret_cast<const T*>(&ku);
+        const T* vv = reinterpret_cast<const T*>(&vu);
 #pragma unroll
-      for (int u = 0; u < kVec; ++u) {
-        k_s[c * ks + d0 + u] = kv[u];
-        v_s[c * ks + d0 + u] = vv[u];
+        for (int u = 0; u < kElems; ++u) {
+          k_s[c * ks + d0 + u] = kv[u];
+          v_s[c * ks + d0 + u] = vv[u];
+        }
+      }
+    } else {
+      for (int e = tid; e < kTile * hd; e += blockDim.x) {
+        const int c = e / hd;
+        const int d = e - c * hd;
+        T kx = from_f<T>(0.f), vx = kx;
+        if (c < nrows) {
+          const size_t off = cbase + static_cast<size_t>(row0 + c) * hd + d;
+          kx = k[off];
+          vx = v[off];
+        }
+        k_s[c * ks + d] = kx;
+        v_s[c * ks + d] = vx;
       }
     }
     __syncthreads();
@@ -161,8 +187,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_split_kernel(
       const int c = e - r * kTile;
       const long long pos = static_cast<long long>(row0) + c;
       float s = kNegInf;
-      // The mask is per (row, step): r % steps is the query's step.
-      if (c < nrows && pos <= idx + (r % steps)) {
+      // The mask is per (row, step): (r0 + r) % steps is the query's step.
+      if (c < nrows && pos <= idx + ((r0 + r) % steps)) {
         const float* qr = q_s + r * hd;
         const T* kr = k_s + c * ks;
         float dot = 0.f;
@@ -212,11 +238,11 @@ __global__ void __launch_bounds__(kThreads) decode_attention_split_kernel(
   const size_t cell =
       (static_cast<size_t>(row_b) * kvh + kh) * nsplit + split;
   for (int e = tid; e < rows * hd; e += blockDim.x) {
-    acc_part[cell * rows * hd + e] = acc[e];
+    acc_part[(cell * rows_all + r0) * hd + e] = acc[e];
   }
   for (int r = tid; r < rows; r += blockDim.x) {
-    m_part[cell * rows + r] = m_s[r];
-    l_part[cell * rows + r] = l_s[r];
+    m_part[cell * rows_all + r0 + r] = m_s[r];
+    l_part[cell * rows_all + r0 + r] = l_s[r];
   }
 }
 
@@ -257,6 +283,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_combine_kernel(
   out[obase + e] = from_f<T>(a / l);
 }
 
+// Shared memory of a CTA holding `rows` query rows; the caller
+// (ops/decode_attention.py, _k7_smem_bytes) sizes a chunk by the same sum.
 template <typename T>
 size_t smem_bytes(int rows, int hd) {
   return static_cast<size_t>(2 * rows * hd + rows * kTile + 3 * rows) *
@@ -264,39 +292,62 @@ size_t smem_bytes(int rows, int hd) {
          static_cast<size_t>(2 * kTile * (hd + Pad<T>::value)) * sizeof(T);
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* index,
-           void* m_part, void* l_part, void* acc_part, void* out, int b,
-           int h, int kvh, int steps, int hd, int S, int tps, int nsplit,
-           int per_row, float scale, void* stream) {
-  const size_t smem = smem_bytes<T>((h / kvh) * steps, hd);
+constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a CTA may have
+
+template <typename T, bool kVec>
+int launch_split(const void* q, const void* k, const void* v,
+                 const void* index, void* m_part, void* l_part,
+                 void* acc_part, int b, int h, int kvh, int steps, int hd,
+                 int S, int tps, int nsplit, int per_row, int chunk,
+                 float scale, cudaStream_t st) {
+  const size_t smem = smem_bytes<T>(chunk, hd);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   // Raise the kernel's shared-memory cap only when a larger shape needs
   // it, so repeated launches (and CUDA graph capture) make no attribute
   // call. Single device, single host thread per process. A failure is
   // cleared so that it does not leak into the next launch's
   // cudaGetLastError().
   static size_t smem_cap = 0;
-  cudaError_t err = cudaSuccess;
   if (smem > smem_cap) {
-    err = cudaFuncSetAttribute(decode_attention_split_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_attention_split_kernel<T, kVec>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) {
       cudaGetLastError();
       return static_cast<int>(err);
     }
     smem_cap = smem;
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  decode_attention_split_kernel<T>
-      <<<dim3(b, kvh, nsplit), kThreads, smem, st>>>(
+  const int nchunk = ((h / kvh) * steps + chunk - 1) / chunk;
+  decode_attention_split_kernel<T, kVec>
+      <<<dim3(b, kvh * nchunk, nsplit), kThreads, smem, st>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const int32_t*>(index),
           static_cast<float*>(m_part), static_cast<float*>(l_part),
           static_cast<float*>(acc_part), h, kvh, steps, hd, S, tps, per_row,
-          scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+          chunk, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* index,
+           void* m_part, void* l_part, void* acc_part, void* out, int b,
+           int h, int kvh, int steps, int hd, int S, int tps, int nsplit,
+           int per_row, int chunk, float scale, void* stream) {
+  if (hd < 1 || hd > 256 || chunk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = (hd * sizeof(T)) % 16 == 0 &&
+                   (reinterpret_cast<uintptr_t>(k) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(v) & 15) == 0;
+  const int err =
+      vec ? launch_split<T, true>(q, k, v, index, m_part, l_part, acc_part, b,
+                                  h, kvh, steps, hd, S, tps, nsplit, per_row,
+                                  chunk, scale, st)
+          : launch_split<T, false>(q, k, v, index, m_part, l_part, acc_part,
+                                   b, h, kvh, steps, hd, S, tps, nsplit,
+                                   per_row, chunk, scale, st);
+  if (err != 0) return err;
   const int rows = (h / kvh) * steps;
   const int zblocks = (rows * hd + kThreads - 1) / kThreads;
   decode_attention_combine_kernel<T>
@@ -314,25 +365,27 @@ extern "C" {
 // Each entry point returns cudaGetLastError() after its launches (0 = ok).
 // m_part / l_part: [b, kvh, nsplit, rows] f32 and acc_part: [b, kvh,
 // nsplit, rows, hd] f32 are scratch the caller allocates; split z covers
-// 64-row tiles [z * tps, (z + 1) * tps). index holds b values when
+// 64-row tiles [z * tps, (z + 1) * tps); a CTA holds `chunk` of the rows
+// = group * steps query rows of a kv head. index holds b values when
 // per_row is set, else one.
 int decode_attention_bf16(const void* q, const void* k, const void* v,
                           const void* index, void* m_part, void* l_part,
                           void* acc_part, void* out, int b, int h, int kvh,
                           int steps, int hd, int S, int tps, int nsplit,
-                          int per_row, float scale, void* stream) {
+                          int per_row, int chunk, float scale, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, index, m_part, l_part, acc_part, out,
                                b, h, kvh, steps, hd, S, tps, nsplit, per_row,
-                               scale, stream);
+                               chunk, scale, stream);
 }
 
 int decode_attention_f32(const void* q, const void* k, const void* v,
                          const void* index, void* m_part, void* l_part,
                          void* acc_part, void* out, int b, int h, int kvh,
                          int steps, int hd, int S, int tps, int nsplit,
-                         int per_row, float scale, void* stream) {
+                         int per_row, int chunk, float scale, void* stream) {
   return launch<float>(q, k, v, index, m_part, l_part, acc_part, out, b, h,
-                       kvh, steps, hd, S, tps, nsplit, per_row, scale, stream);
+                       kvh, steps, hd, S, tps, nsplit, per_row, chunk, scale,
+                       stream);
 }
 
 }  // extern "C"

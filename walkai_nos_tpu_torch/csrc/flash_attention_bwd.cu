@@ -59,6 +59,8 @@
 //   multiple of 16, the same kernels load element by element into the same
 //   swizzled tiles (a template switch of the load path, not another
 //   kernel).
+// The tiles, their copies and the wgmma wrappers live in hopper_mma.cuh,
+// shared with the forward kernels (flash_attention.cu).
 // What holds them above the bound at the ViT's shape: each CTA re-reads
 // the streamed operand of its head from L2 (five 64-row tiles), and a
 // tile's two products, its exponentials and its copies run one after the
@@ -70,34 +72,17 @@
 // cannot meet the f32 tolerance (1e-4 relative), and no path of the port
 // runs attention in f32 on the card.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
-
-constexpr int kBlock = 64;      // rows per tile, both kernels, both arms
-constexpr int kThreads = 256;   // f32 arm
-constexpr int kMmaWarps = 4;    // bf16 arm: one warpgroup, 16 rows a warp
-constexpr int kMmaThreads = 32 * kMmaWarps;
-
-typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
 }
-
-struct Layout {
-  long long sb, sh, ss;
-};
-
-struct Shape {
-  int heads, sq, sk, d, kv_len, causal;
-  float scale;
-};
 
 // P and dS of one (query row qp, key kp) entry; see the header for the
 // visibility rule and the rows that see no key.
@@ -117,8 +102,6 @@ __device__ __forceinline__ void p_ds(float s, float dp, float lse, float dd,
     *p = 1.f / static_cast<float>(sh.sk);
   }
 }
-
-constexpr float kLog2e = 1.4426950408889634f;
 
 // The bf16 arm's P and dS over a warp's 16 x 64 accumulator (8-wide
 // fragment n, element i: row g + 8 * (i >> 1), column 8 * n + 2t +
@@ -175,71 +158,10 @@ __device__ __forceinline__ float warp_sum(float x) {
 // ---------------------------------------------------------------------------
 // bf16 arm: tensor cores.
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Element offset of 16-byte chunk c of row r in a swizzled [kBlock, DMAX]
-// bf16 tile: DMAX / 64 panels of [kBlock, 64], one after the other, each
-// with 128-byte rows whose chunks are XOR-swizzled by r & 7 (at a
-// 1024-byte aligned panel, the hardware's 128-byte swizzle).
-template <int DMAX>
-__device__ __forceinline__ int swz(int r, int c) {
-  return (c >> 3) * (kBlock * 64) + r * 64 + (((c & 7) ^ (r & 7)) << 3);
-}
-
-// Rows row0 .. row0 + kBlock - 1 of a [rows, d] view (row stride ss) into a
-// swizzled tile; rows past `rows` and columns past d are zero.
-template <int DMAX, bool kAsync>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
-                                               long long ss, int row0,
-                                               int rows, int d) {
-  constexpr int kChunks = DMAX / 8;
-  if constexpr (kAsync) {
-    for (int i = threadIdx.x; i < kBlock * kChunks; i += kMmaThreads) {
-      const int r = i / kChunks;
-      const int c = i % kChunks;
-      const int row = row0 + r;
-      const bool ok = row < rows && c * 8 < d;
-      const bf16* p = ok ? src + row * ss + c * 8 : src;
-      cp_async16(smem_addr(dst + swz<DMAX>(r, c)), p, ok ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kBlock * DMAX; i += kMmaThreads) {
-      const int r = i / DMAX;
-      const int e = i % DMAX;
-      const int row = row0 + r;
-      bf16 x = __float2bfloat16(0.f);
-      if (row < rows && e < d) x = src[row * ss + e];
-      dst[swz<DMAX>(r, e >> 3) + (e & 7)] = x;
-    }
-  }
 }
 
 // kBlock f32 values of a row vector from index row0 (zero past `rows`).
@@ -252,48 +174,6 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
     cp_async4(smem_addr(dst + i), ok ? src + row : src, ok ? 4 : 0);
   } else {
     dst[i] = ok ? src[row] : 0.f;
-  }
-}
-
-// The warp's 16 rows of C fragments (acc[n]: columns 8n + 2t, 8n + 2t + 1
-// of rows g and g + 8), times mul, into a swizzled tile as bf16.
-template <int DMAX>
-__device__ __forceinline__ void frags_to_tile(bf16* tile, int row0,
-                                              const float (&acc)[DMAX / 8][4],
-                                              float mul) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int n = 0; n < DMAX / 8; ++n)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + (lane >> 2) + 8 * h;
-      *reinterpret_cast<uint32_t*>(tile + swz<DMAX>(row, n) + 2 * (lane & 3)) =
-          pack_bf16(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
-    }
-}
-
-// Rows row0 .. of a swizzled tile into a [rows, d] view (row stride ss):
-// rows past `rows` and columns past d are not written; 16-byte stores where
-// the view allows them.
-template <int DMAX>
-__device__ __forceinline__ void store_tile_bf16(bf16* dst, long long ss,
-                                                const bf16* tile, int row0,
-                                                int rows, int d) {
-  constexpr int kChunks = DMAX / 8;
-  const bool vec = (reinterpret_cast<uintptr_t>(dst) & 15) == 0 &&
-                   ss % 8 == 0 && d % 8 == 0;
-  for (int i = threadIdx.x; i < kBlock * kChunks; i += kMmaThreads) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    const int row = row0 + r;
-    if (row >= rows || c * 8 >= d) continue;
-    const bf16* src = tile + swz<DMAX>(r, c);
-    bf16* out = dst + row * ss + c * 8;
-    if (vec) {
-      *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(src);
-    } else {
-      for (int e = 0; e < 8 && c * 8 + e < d; ++e) out[e] = src[e];
-    }
   }
 }
 
@@ -337,103 +217,6 @@ __device__ __forceinline__ void row_term(const bf16* g_s, const bf16* o_s,
 // bf16 arm: warpgroup MMA (wgmma). One warpgroup per CTA; B operands read
 // from shared memory once per warpgroup.
 
-// Descriptor of a swizzled [rows, 64] bf16 tile in shared memory: 128-byte
-// rows whose 16-byte chunks are XOR-swizzled by row & 7, which is the
-// hardware's 128-byte swizzle when the tile starts on a 1024-byte boundary;
-// 8-row groups 1024 bytes apart. Read K-major (contraction along the row),
-// a 16-wide step adds 32 bytes (2 in the address field); read MN-major
-// (contraction down the rows), a 16-row step adds 2048 bytes (128).
-__device__ __forceinline__ uint64_t tile_desc(const bf16* tile) {
-  const uint32_t addr = smem_addr(tile);
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-// The 32 f32 accumulator operands of an m64n64 wgmma, %0 .. %31.
-#define WG_D                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
-  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
-  "%28, %29, %30, %31}"
-#define WG_ACC4(d, n) \
-  "+f"(d[n][0]), "+f"(d[n][1]), "+f"(d[n][2]), "+f"(d[n][3])
-#define WG_ACC(d)                                                   \
-  WG_ACC4(d, 0), WG_ACC4(d, 1), WG_ACC4(d, 2), WG_ACC4(d, 3),       \
-      WG_ACC4(d, 4), WG_ACC4(d, 5), WG_ACC4(d, 6), WG_ACC4(d, 7)
-
-// d (64 x 64, f32, C-fragment layout per warp) = A B (+ d when accumulate),
-// A and B K-major tiles in shared memory.
-__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t a,
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      WG_D ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_ACC(d)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d += A B, A from registers (16 rows per warp, in the layout of an
-// m16n8k16 A fragment), B an MN-major tile in shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      WG_D ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_ACC(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-// Commits the issued wgmma and waits for all of them.
-__device__ __forceinline__ void wgmma_finish() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Ties an accumulator to this point, so no read of it moves above the
-// wait before it.
-__device__ __forceinline__ void fence_acc(float (&a)[8][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(a[n][i])::"memory");
-}
-
-// cp.async wrote the tiles through the generic proxy; wgmma reads them
-// through the async proxy.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// A fragments of the 16-wide steps j of a [16 rows per warp, 64] C-fragment
-// array, rounded to bf16 (step j is n-tiles 2j and 2j + 1).
-__device__ __forceinline__ void to_a_frags(const float (&x)[8][4],
-                                           uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    a[j][0] = pack_bf16(x[2 * j][0], x[2 * j][1]);
-    a[j][1] = pack_bf16(x[2 * j][2], x[2 * j][3]);
-    a[j][2] = pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]);
-    a[j][3] = pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3]);
-  }
-}
-
-__device__ __forceinline__ void zero(float (&x)[8][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[n][i] = 0.f;
-}
-
-// Descriptor steps: a 64-column panel of a tile is 8 KB further on.
-constexpr int kPanelStep = kBlock * 64 * 2 >> 4;
-
 template <int DMAX>
 constexpr size_t dq_wgmma_smem() {
   // Q, dO, two stages of K and V (O passes through K's second stage), the
@@ -445,12 +228,6 @@ template <int DMAX>
 constexpr size_t dkv_wgmma_smem() {
   // K, V, two stages of Q and dO, two stages of lse and D' rows.
   return sizeof(bf16) * 6 * kBlock * DMAX + sizeof(float) * 4 * kBlock;
-}
-
-// The 64-column panel p of an accumulator over DMAX columns.
-template <int DMAX>
-__device__ __forceinline__ float (&panel(float (&acc)[DMAX / 8][4], int p))[8][4] {
-  return *reinterpret_cast<float(*)[8][4]>(&acc[8 * p]);
 }
 
 // K5, bf16. Grid: (query tiles, batch * heads). The warpgroup owns 64
@@ -1043,37 +820,6 @@ constexpr size_t dkv_smem() {
 // ---------------------------------------------------------------------------
 // Launchers and entry points.
 
-// Raises a kernel's dynamic shared-memory cap once, before its first
-// launch (never during CUDA graph capture).
-template <typename K>
-int allow_smem(K kernel, size_t bytes, bool* ready) {
-  if (*ready) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return static_cast<int>(err);
-  }
-  *ready = true;
-  return 0;
-}
-
-Layout layout(const long long* s, int i) {
-  return Layout{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
-}
-
-bool bad_shape(int d, int sq, int sk, int kv_len) {
-  return d < 1 || d > 128 || sq < 1 || sk < 1 || kv_len < 1 || kv_len > sk;
-}
-
-// Whether a bf16 view can be loaded in 16-byte copies: its base and every
-// row start 16-byte aligned.
-bool aligned16(const void* p, const Layout& L) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && L.sb % 8 == 0 &&
-         L.sh % 8 == 0 && L.ss % 8 == 0;
-}
-
 struct DqArgs {
   const void *q, *k, *v, *g, *o, *lse, *g_lse;
   void *dcap, *dq;
@@ -1154,15 +900,6 @@ int launch_dkv_f32(const DkvArgs& a, const long long* st, int b,
       layout(st, 1), layout(st, 2), layout(st, 3), layout(st, 4),
       layout(st, 5), sh);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The bf16 arm takes 16-byte copies when every tile it loads allows them
-// (ptrs[i] has the strides st[3i .. 3i + 2]).
-bool async_ok(const void* const* ptrs, int n, const long long* st, int d) {
-  if (d % 8) return false;
-  for (int i = 0; i < n; ++i)
-    if (!aligned16(ptrs[i], layout(st, i))) return false;
-  return true;
 }
 
 int dq_bf16(const DqArgs& a, const long long* st, int b, const Shape& sh,

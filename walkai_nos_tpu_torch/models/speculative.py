@@ -11,10 +11,11 @@ Position bookkeeping (cache index n = tokens 0..n-1 processed; the next
 input is the last emitted token, at position n):
 
 - a round feeds the target [cur, d_0 .. d_{k-1}] (positions n..n+k);
-  its logits at position n+j predict P_j. For a GQA target this
-  k+1-position verify goes through the streamed dense decode kernel
-  (`ops/decode_attention.decode_attention`, multi-step queries), hence
-  k + 1 <= MAX_KERNEL_STEPS;
+  its logits at position n+j predict P_j. For a GQA target a verify of
+  k + 1 <= MAX_KERNEL_STEPS positions goes through the streamed dense
+  decode kernel (`ops/decode_attention.decode_attention`, multi-step
+  queries); a wider one through the model's masked cache attention, as
+  in JAX;
 - accept a = the longest prefix with d_j == P_j; emit P_0..P_a;
 - both caches hold valid K/V through position n+a, so both indices
   rewind to n+a+1; stale rows past it are masked until overwritten.
@@ -34,7 +35,6 @@ import torch
 from walkai_nos_tpu_torch.device import resolve_device
 from walkai_nos_tpu_torch.models.decode import cache_bucket
 from walkai_nos_tpu_torch.models.lm import DecoderLM, DenseCache, LMConfig
-from walkai_nos_tpu_torch.ops.decode_attention import MAX_KERNEL_STEPS
 
 __all__ = [
     "accept_tokens",
@@ -97,11 +97,6 @@ def make_speculative_generate_fn(
     accepted prefix length."""
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
-    if k + 1 > MAX_KERNEL_STEPS:
-        raise ValueError(
-            f"k + 1 = {k + 1} verify positions exceed the decode kernel's "
-            f"{MAX_KERNEL_STEPS} steps"
-        )
     if target_cfg.vocab_size != draft_cfg.vocab_size:
         raise ValueError(
             "target and draft must share a vocabulary "

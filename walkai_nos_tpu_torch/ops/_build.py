@@ -4,9 +4,10 @@ Each `csrc/*.cu` compiles with `nvcc` for `sm_90a` into its own shared
 library with a plain C interface, loaded with `ctypes` (no PyTorch
 headers: a build takes seconds, not minutes). Builds happen at first
 use, never at import, into `walkai_nos_tpu_torch/_kernels_build/`
-(gitignored); a library is keyed by the hash of its source, so an edited
-kernel rebuilds and an unchanged one loads from disk. All sources build
-in parallel, one `nvcc` process each, started together.
+(gitignored); a library is keyed by the hash of its source and of every
+shared header in `csrc/` (`*.cuh`), so an edited kernel or header
+rebuilds and an unchanged one loads from disk. All sources build in
+parallel, one `nvcc` process each, started together.
 
 A build that fails raises with the compiler's output; there is no
 fallback to a plain path.
@@ -55,9 +56,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    digest = hashlib.sha256()
+    for f in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as src:
+            digest.update(src.read())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 
 def load_kernels() -> dict[str, ctypes.CDLL]:

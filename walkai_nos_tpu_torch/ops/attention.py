@@ -12,7 +12,10 @@ Port of `walkai_nos_tpu/ops/attention.py` (the reference). Kernels
   `_flash_pallas_impl` / `_flash_kernel`: online-softmax attention over
   `[b, h, s, d]` that also returns the f32 logsumexp, with the
   bottom-right causal mask (blocks past the diagonal skipped) and the
-  `kv_len` tail mask.
+  `kv_len` tail mask. The bf16 arm of K3/K4 runs both products on tensor
+  cores (warpgroup MMA, `wgmma`): Q resident in swizzled shared memory,
+  K/V streamed through a two-stage `cp.async` ring, the online softmax
+  and P in registers (P rounded to bf16 for the PV product).
 - K5 `flash_dq` and K6 `flash_dkv` (`csrc/flash_attention_bwd.cu`)
   replace `_flash_bwd_impl`: its `_flash_dq_kernel` and
   `_flash_dkv_kernel`, and the XLA reduction in front of them. K5 also
@@ -22,11 +25,13 @@ Port of `walkai_nos_tpu/ops/attention.py` (the reference). Kernels
   logsumexp; no atomics, bitwise repeatable. Both read ~44 MB per ViT
   layer call (b 32, s 296, h 6, d 64) against 6.5 and 8.6 GFLOP, so
   bytes bound them there (13.2 us each at 3.35 TB/s). Their bf16 arms
-  run every product on tensor cores (`mma.sync` with `ldmatrix`), keep
-  the operand tiles bf16 in swizzled shared memory, stream the next
-  tile with `cp.async` while the current one computes, and keep P and
-  dS in registers; their f32 arms stay CUDA-core kernels (tensor cores
-  would mean TF32, short of the f32 tolerance).
+  run every product on tensor cores (`wgmma`), keep the operand tiles
+  bf16 in swizzled shared memory, stream the next tile with `cp.async`
+  while the current one computes, and keep P and dS in registers.
+
+The f32 arms of all four stay CUDA-core kernels (tensor cores would mean
+TF32, short of the f32 tolerance). The bf16 tiles and `wgmma` wrappers
+the four share live in `csrc/hopper_mma.cuh`.
 
 The kernels address every tensor through (batch, head, row) strides with
 a unit column stride, so the packed path's backward (unpack, recompute

@@ -15,10 +15,12 @@ Three kernels carry the decode step (sources in `csrc/`, built by
 
 - `decode_attention.cu` (K7) replaces the TPU kernel `_gqa_pallas`
   (`_gqa_stream_kernel` -> `_stream_fold`): streamed attention over the
-  dense cache, GQA rows served from one K/V read per kv head, scalar or
-  per-row index read on the device, 1-8 query steps, tiles past the
-  index never read. It takes any cache length (the JAX wrapper falls
-  back to its reference when the length is not a multiple of 128).
+  dense cache, GQA rows served from one K/V read per kv head (up to 64
+  query rows a CTA, more rows on more CTAs), scalar or per-row index
+  read on the device, tiles past the index never read. It takes any
+  cache length (the JAX wrapper falls back to its reference when the
+  length is not a multiple of 128), any group and steps, and head_dim
+  up to 256.
 - `paged_attention.cu` (K1) replaces the TPU kernel `_paged_pallas`
   (`_paged_stream_kernel` -> `_stream_fold`): streamed paged attention
   through the block table, tail blocks never read, GQA rows served from
@@ -65,7 +67,6 @@ import torch
 __all__ = [
     "KV_QUANT_MODES",
     "LAUNCHES",
-    "MAX_GROUP_ROWS",
     "MAX_KERNEL_STEPS",
     "PAGE_ROWS",
     "decode_attention",
@@ -93,13 +94,17 @@ _NEG_INF = -1e30
 # the kernels' streaming block (the JAX package's PAGE_ROWS).
 PAGE_ROWS = 128
 
-# Decode-path query positions per call the kernels take; wider prefill
-# chunks go through the gather + masked-attention path in models/lm.py.
+# Decode-path query positions per call K1 and K2 take, and the widest
+# step models/lm.py sends to the decode kernels (K7 takes any); wider
+# chunks go through the gather + masked-attention path, as in JAX.
 MAX_KERNEL_STEPS = 8
 
-# Query rows per kv head (group * steps) K7 holds in one CTA: TinyLlama's
-# group of 8 at MAX_KERNEL_STEPS.
-MAX_GROUP_ROWS = 64
+# K7's limits: query rows per kv head (group * steps) one CTA holds at
+# most (TinyLlama's group of 8 at MAX_KERNEL_STEPS; more rows take more
+# CTAs), the widest head it takes, and the shared memory a CTA may have.
+_K7_CHUNK_ROWS = 64
+_K7_MAX_HEAD_DIM = 256
+_K7_MAX_SMEM = 232448
 
 # Launch counts per kernel: each wrapper adds one where it launches its
 # kernel, and nowhere else.
@@ -482,10 +487,29 @@ def _split(units: int, cells: int, device: torch.device, quantum: int = 1):
 _TILE = 64  # K7's cache rows per streamed tile
 
 
+def _k7_smem_bytes(rows: int, hd: int, itemsize: int) -> int:
+    """Shared memory of a K7 CTA holding `rows` query rows
+    (`smem_bytes` in csrc/decode_attention.cu): f32 q, accumulator,
+    scores and three row vectors, and one K and one V tile whose rows
+    are padded by one f32 or two bf16 elements."""
+    pad = 1 if itemsize == 4 else 2
+    return ((2 * rows * hd + rows * _TILE + 3 * rows) * 4
+            + 2 * _TILE * (hd + pad) * itemsize)
+
+
+def _k7_chunk(rows: int, hd: int, itemsize: int) -> int:
+    """Query rows per K7 CTA: up to 64, halved until its tiles fit."""
+    chunk = min(rows, _K7_CHUNK_ROWS)
+    while chunk > 1 and _k7_smem_bytes(chunk, hd, itemsize) > _K7_MAX_SMEM:
+        chunk = -(-chunk // 2)
+    return chunk
+
+
 def _decode_attention_cuda(q, k, v, index):
     """Launch K7 (split pass + combine). q [b, h, steps, hd]; k/v [b,
     kv_heads, cache_len, hd]; index a [1] (shared) or [b] (per-row)
-    int32 tensor on the device."""
+    int32 tensor on the device. The group * steps query rows of a kv
+    head go to CTAs in chunks of at most 64 (`_k7_chunk`)."""
     _require_cuda(q, k, v, index)
     b, h, steps, hd = q.shape
     kvh, cache_len = k.shape[1], k.shape[2]
@@ -496,22 +520,15 @@ def _decode_attention_cuda(q, k, v, index):
         )
     if h % kvh != 0:
         raise ValueError(f"heads {h} must be a multiple of kv_heads {kvh}")
-    if steps > MAX_KERNEL_STEPS or (h // kvh) * steps > MAX_GROUP_ROWS:
+    if not 1 <= hd <= _K7_MAX_HEAD_DIM:
         raise ValueError(
-            f"decode_attention takes steps <= {MAX_KERNEL_STEPS} and "
-            f"group * steps <= {MAX_GROUP_ROWS} query rows per kv head; "
-            f"got steps {steps}, group {h // kvh}"
-        )
-    if hd not in (64, 128):
-        raise ValueError(
-            f"decode_attention takes head_dim 64 or 128; got {hd}"
+            f"decode_attention takes head_dim up to {_K7_MAX_HEAD_DIM}; "
+            f"got {hd}"
         )
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q and the cache must share one dtype")
     if not (k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the K/V cache must be contiguous")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("the K/V cache must be 16-byte aligned")
     per_row = index.dim() != 0
     if per_row and tuple(index.shape) != (b,):
         raise ValueError(
@@ -520,7 +537,10 @@ def _decode_attention_cuda(q, k, v, index):
     idx = index.reshape(-1).to(torch.int32).contiguous()
     q = q.contiguous()
     rows = (h // kvh) * steps
-    tps, nsplit = _split(-(-cache_len // _TILE), b * kvh, q.device)
+    chunk = _k7_chunk(rows, hd, q.element_size())
+    tps, nsplit = _split(
+        -(-cache_len // _TILE), b * kvh * -(-rows // chunk), q.device
+    )
     f32 = dict(dtype=torch.float32, device=q.device)
     m_part = torch.empty(b, kvh, nsplit, rows, **f32)
     l_part = torch.empty(b, kvh, nsplit, rows, **f32)
@@ -528,13 +548,13 @@ def _decode_attention_cuda(q, k, v, index):
     out = torch.empty_like(q)
     fn = _kernel_fn(
         "decode_attention", "decode_attention_" + _suffix(q),
-        [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P],
+        [_P] * 8 + [_I] * 10 + [ctypes.c_float, _P],
     )
     code = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
         m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
         out.data_ptr(), b, h, kvh, steps, hd, cache_len, tps, nsplit,
-        int(per_row), hd ** -0.5,
+        int(per_row), chunk, hd ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _check(code, "decode_attention")
@@ -550,10 +570,9 @@ def decode_attention(q, k, v, index) -> torch.Tensor:
     k/v: [batch, kv_heads, cache_len, head_dim] with kv_heads dividing
     heads; index: an int, a 0-d tensor (every row at one position) or a
     [batch] tensor (ragged rows), read by the kernel on the device.
-    Query step r sees positions p <= index + r. Any cache_len; on the GPU
-    steps <= MAX_KERNEL_STEPS, group * steps <= MAX_GROUP_ROWS, head_dim
-    64 or 128, bf16 or f32 (a shape outside these raises, naming the
-    limit)."""
+    Query step r sees positions p <= index + r. Any cache_len, group and
+    steps; on the GPU head_dim up to 256, bf16 or f32 (a shape outside
+    these raises, naming the limit)."""
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, index)
     if not torch.is_tensor(index):
