@@ -9,7 +9,8 @@ the CUDA toolkit (`nvcc`). It:
    sm_90a) and prints the build seconds, the ptxas resource report per
    kernel and, from `cuobjdump -sass`, the tensor-core instructions
    (HGMMA, HMMA) of each attention kernel, failing if a bf16 forward or
-   backward kernel (K3/K4, K5, K6) holds no HGMMA; then checks, under
+   backward kernel (K3/K4, K5, K6) holds no HGMMA or a bf16 or int8-pool
+   decode kernel (K1, K7) no HMMA; then checks, under
    `torch.profiler` (this process's only profiler session), that three
    attention backward calls at the ViT's shape run exactly K5, K6, K5,
    K6, K5, K6 on the device;
@@ -24,8 +25,11 @@ the CUDA toolkit (`nvcc`). It:
    bf16 and f32 at the generate step's shape (8 rows, 32 heads over 4 kv
    heads, 1024-row cache, shared index 1000), the dense engine's (2048-row
    cache, per-row indices 0, 127, 128 and past the cache), the speculative
-   verify's (5 steps, batch 1) and an MHA shape, and times kernel, plain
-   version and SDPA over the masked cache;
+   verify's (5 steps, batch 1), an MHA shape, rows at 0, 63, 64 and past a
+   2048-row cache, and an 8192-row cache, and times kernel, plain version
+   and SDPA over the masked cache; then, in a child process, counts the
+   device kernels of each K1 / K7 call under the profiler (1 where the
+   cell's last CTA combines the splits, 2 where a second kernel does);
 4. serves 8 greedy requests (prompts of 40-600 tokens, two sharing a
    256-token prefix, 32 new tokens each) through the port's
    `ContinuousBatcher` at TinyLlama-1.1B width (22 layers, random bf16
@@ -84,8 +88,8 @@ the CUDA toolkit (`nvcc`). It:
     kernel's numbers, and as the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-Each profiled window (LM serving, generation, int8 serving, ViT serving,
-ViT training) runs in a child process of its own (`--window NAME`: the
+Each profiled window (the decode kernels' launches, LM serving,
+generation, int8 serving, ViT serving, ViT training) runs in a child process of its own (`--window NAME`: the
 script starts itself once per window and fails if a child fails); the
 profiler there must see every launch of the window's sentinel kernels
 that their wrappers counted, else the window fails. Its device-busy
@@ -820,20 +824,27 @@ def dense_kernel_phase(da, seed: int) -> tuple[list, list]:
     bf16 and f32 at the dense decode path's shapes: the generate step
     (TinyLlama, 8 rows over a 1024-row bucket, shared index 1000), the
     dense engine's step (2048-row cache, per-row indices at the edges and
-    past the cache), the speculative verify (5 steps, batch 1) and an MHA
-    model (32 heads over 32 kv heads). Times kernel, plain version and
+    past the cache), the speculative verify (5 steps, batch 1), an MHA
+    model (32 heads over 32 kv heads), rows that see far less than the
+    cache (indices 0, 63, 64 and past a 2048-row cache) and an 8192-row
+    cache (many tiles a split). Times kernel, plain version and
     SDPA over the same masked cache (GQA enabled) in bf16, each against
     the byte bound of this case's visible rows. Returns (checks, rows)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 20)
     bf = torch.bfloat16
     ragged = [0, 127, 128, 1000, 1500, 2047, 2048, 2100]  # S = 2048
+    # Rows whose visible range is much shorter than S (most splits empty)
+    # beside one past the cache.
+    short = [0, 63, 64, 2100] * 2
     # (case, b, h, kvh, S, steps, index)
     cases = (
         ("generate", 8, 32, 4, 1024, 1, 1000),
         ("ragged_2048", 8, 32, 4, 2048, 1, ragged),
         ("verify", 1, 32, 4, 1024, 5, 900),
         ("mha", 8, 32, 32, 1024, 1, 1000),
+        ("short_2048", 8, 32, 4, 2048, 1, short),
+        ("long_8192", 8, 32, 4, 8192, 1, 8000),
     )
     checks, rows = [], []
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1071,12 +1082,14 @@ def exactness_phase(ContinuousBatcher, make_generate_fn, spec_mod, lm_mod, da,
 
 
 def _profiled(fn):
-    """fn() under torch.profiler (CPU and CUDA activity), between two
-    synchronizes: (profiler, wall seconds, fn's result)."""
+    """fn() under torch.profiler, between two synchronizes: (profiler,
+    wall seconds, fn's result). Device activity only: the windows read
+    device kernels, and host-op tracing of a 22-layer decode window
+    multiplied the events (and the minutes spent aggregating them)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         result = fn()
         torch.cuda.synchronize()
@@ -1084,24 +1097,24 @@ def _profiled(fn):
     return prof, wall, result
 
 
-def _kernel_counts(prof) -> dict:
+def _kernel_counts(rows) -> dict:
     """{kernel name<template args>: [device launches, device ms]} of a
-    profile."""
+    profile's `_device_rows`."""
     counts = {}
-    for us, n, key in _device_rows(prof):
+    for us, n, key in rows:
         c = counts.setdefault(_demangled_name(key), [0, 0.0])
         c[0] += n
         c[1] += us / 1e3
     return counts
 
 
-def _check_window(prof, launches: dict, sentinels: dict) -> dict:
+def _check_window(rows, launches: dict, sentinels: dict) -> dict:
     """Each sentinel (launch counter, or "+"-joined counters of wrappers
     sharing one kernel -> the kernel's name up to its template arguments)
     must have launched, and the profiler must have seen exactly as many
     launches as the wrappers counted. Returns {sentinel: {"launches": n,
-    "device_ms": their device time}}."""
-    counts = _kernel_counts(prof)
+    "device_ms": their device time}}; rows: the profile's `_device_rows`."""
+    counts = _kernel_counts(rows)
     seen = {}
     for counters, kernel in sentinels.items():
         counted = sum(launches[c] for c in counters.split("+"))
@@ -1140,7 +1153,7 @@ def window_lm_serving(seed: int, quant: str | None = None) -> dict:
     arm = "_int8" if quant else ""
     return _profile_summary(
         prof, wall, ("int8_" if quant else "") + "profile.txt", da.LAUNCHES,
-        {"paged_attention" + arm: "paged_attention_split_kernel",
+        {"paged_attention" + arm: "decode_mma_kernel",
          "qkv_rope" + arm: "qkv_partial_kernel"},
     )
 
@@ -1160,7 +1173,90 @@ def window_generate(seed: int) -> dict:
     da.reset_launch_counts()
     prof, wall, _ = _profiled(lambda: gen(model, prompts, GENERATE_NEW))
     return _profile_summary(prof, wall, "generate_profile.txt", da.LAUNCHES,
-                            {"decode_attention": "decode_attention_split_kernel"})
+                            {"decode_attention": "decode_mma_kernel"})
+
+
+def window_decode_launches(seed: int) -> dict:
+    """Device kernels per K1 / K7 call: 1 where the cell's last CTA
+    combines (a one-step call, at most 512 outputs a cell), 2 where a
+    second kernel does (a multi-step call). Three calls of each case at
+    the serving and generate shapes between ~1 ms spin kernels, which are
+    left out of the count and keep the calls away from the edges of the
+    recording (where the profiler was seen to drop a launch); the
+    profiler must see each wrapper's launch count."""
+    from walkai_nos_tpu_torch.ops import decode_attention as da
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 40)
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    b, h, kvh, hd, nlog, nb = 8, 32, 4, 64, 16, 129
+    table = (torch.randperm(nb - 1, generator=gen, device=dev) + 1)[
+        : b * nlog].reshape(b, nlog).to(torch.int32)
+    steady = torch.full((b,), 1024, device=dev, dtype=torch.int32)
+    kp, vp = rnd(nb, kvh, 128, hd), rnd(nb, kvh, 128, hd)
+    kq, ks = da.quantize_kv_rows(kp, "int8")
+    vq, vs = da.quantize_kv_rows(vp, "int8")
+    k7 = rnd(b, kvh, 1024, hd), rnd(b, kvh, 1024, hd)
+    q1, q8, qv = rnd(b, h, 1, hd), rnd(b, h, 8, hd), rnd(1, h, 5, hd)
+    idx = torch.tensor(1000, device=dev, dtype=torch.int32)
+    cases = {  # name: (call, launch counter, device kernels a call)
+        "paged_attention steps 1": (
+            lambda: da.paged_decode_attention(q1, kp, vp, table, steady),
+            "paged_attention", 1),
+        "paged_attention steps 8": (
+            lambda: da.paged_decode_attention(q8, kp, vp, table, steady),
+            "paged_attention", 2),
+        "paged_attention_int8 steps 1": (
+            lambda: da.paged_decode_attention(q1, kq, vq, table, steady,
+                                              k_scales=ks, v_scales=vs),
+            "paged_attention_int8", 1),
+        "decode_attention generate": (
+            lambda: da.decode_attention(q1, *k7, idx), "decode_attention", 1),
+        "decode_attention verify": (
+            lambda: da.decode_attention(qv, k7[0][:1], k7[1][:1], idx),
+            "decode_attention", 2),
+    }
+    for call, _, _ in cases.values():
+        call()
+    torch.cuda.synchronize()
+    calls = 3
+    da.reset_launch_counts()
+    counted = []
+
+    def run():
+        for call, counter, _ in cases.values():
+            before = da.LAUNCHES[counter]
+            torch.cuda._sleep(2_000_000)
+            for _ in range(calls):
+                call()
+            counted.append(da.LAUNCHES[counter] - before)
+        torch.cuda._sleep(2_000_000)
+
+    prof = _profiled(run)[0]
+    events = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
+                    key=lambda e: e.time_range.start)
+    segments, current = [], None
+    for e in events:
+        if "spin_kernel" in e.name:
+            if current is not None:
+                segments.append(current)
+            current = []
+        elif current is not None:
+            current.append(_demangled_name(e.name).split("<")[0])
+    out = {}
+    for (name, (_, _, want)), seen, n in zip(cases.items(), segments, counted):
+        out[name] = {"device_kernels_per_call": len(seen) / calls,
+                     "kernels": sorted(set(seen)), "wrapper_launches": n}
+        if n != calls or len(seen) != want * calls or seen.count("decode_mma_kernel") != calls:
+            _fail(f"{name}: {n} wrapper launches, device kernels {seen}; "
+                  f"want {want} a call")
+    if len(segments) != len(cases):
+        _fail(f"decode launch window: {len(segments)} segments for {len(cases)} cases")
+    return out
 
 
 def run_window(name: str, seed: int) -> dict:
@@ -1177,15 +1273,15 @@ def run_window(name: str, seed: int) -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def _device_rows(prof) -> list:
+def _device_rows(averages) -> list:
     """(device us, calls, name) of each device-side event kind (kernels,
-    copies, sets) of a profile, largest first. Host ops, autograd nodes
+    copies, sets) of a profile's `key_averages()`, largest first. Host ops, autograd nodes
     and annotated ranges (an optimizer step) carry the device time of the
     kernels inside them too, and are left out."""
     from torch.autograd import DeviceType
 
     rows = []
-    for ev in prof.key_averages():
+    for ev in averages:
         if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
             continue
         dev_us = getattr(ev, "device_time_total", None)
@@ -1202,11 +1298,12 @@ def _profile_summary(prof, wall: float, table_name: str, launches: dict,
     wall time), the kernels that took the most device time, and the
     sentinels' launches as `_check_window` holds them against the
     wrappers' counts; the full table goes to chiprun_out/<table_name>."""
-    rows = _device_rows(prof)
+    averages = prof.key_averages()
+    rows = _device_rows(averages)
     busy = sum(r[0] for r in rows) / 1e6
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", table_name), "w") as f:
-        f.write(prof.key_averages().table(sort_by="device_time_total", row_limit=40))
+        f.write(averages.table(sort_by="device_time_total", row_limit=40))
     return {
         "wall_s": wall, "device_kernel_s": busy,
         "device_busy_share": busy / wall if wall else None,
@@ -1214,7 +1311,7 @@ def _profile_summary(prof, wall: float, table_name: str, launches: dict,
             {"kernel": k[:80], "device_ms": us / 1e3, "calls": n}
             for us, n, k in rows[:12]
         ],
-        "sentinel_launches": _check_window(prof, launches, sentinels),
+        "sentinel_launches": _check_window(rows, launches, sentinels),
     }
 
 
@@ -1722,6 +1819,7 @@ def window_vit_training(seed: int) -> dict:
 
 
 WINDOWS = {
+    "decode_launches": window_decode_launches,
     "lm_serving": window_lm_serving,
     "generate": window_generate,
     "int8_serving": lambda seed: window_lm_serving(seed, "int8"),
@@ -1833,6 +1931,8 @@ def main() -> int:
                     help="run one profiled window and print its summary "
                          "(the script starts itself so, once per window)")
     args = ap.parse_args()
+    start = time.monotonic()
+    phase_end_s = {}  # seconds from the start to the end of each phase
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1871,17 +1971,24 @@ def main() -> int:
         for line in lines:
             print(f"ptxas {name}: {line}", flush=True)
     tensor_cores = {lib: _tensor_core_counts(libs[lib]._name)
-                    for lib in ("flash_attention", "flash_attention_bwd")}
+                    for lib in ("flash_attention", "flash_attention_bwd",
+                                "decode_attention", "paged_attention")}
     print(json.dumps({"tensor_core_instructions": tensor_cores}), flush=True)
     # Every bf16 attention kernel (K3/K4 forward, K5, K6) runs its products
-    # as wgmma: each of their instantiations must hold HGMMA instructions.
-    for lib, prefixes in (("flash_attention", ("flash_fwd_wgmma",)),
-                          ("flash_attention_bwd", ("flash_dq_wgmma", "flash_dkv_wgmma"))):
+    # as wgmma, and every bf16 or int8-pool decode kernel (K1, K7) as
+    # mma.sync: each of their instantiations must hold HGMMA / HMMA
+    # instructions.
+    for lib, prefixes, op in (
+            ("flash_attention", ("flash_fwd_wgmma",), "HGMMA"),
+            ("flash_attention_bwd", ("flash_dq_wgmma", "flash_dkv_wgmma"), "HGMMA"),
+            ("decode_attention", ("decode_mma_kernel",), "HMMA"),
+            ("paged_attention", ("decode_mma_kernel",), "HMMA")):
         for prefix in prefixes:
             found = {k: v for k, v in tensor_cores[lib].items() if prefix in k}
-            if not found or not all(v.get("HGMMA") for v in found.values()):
-                _fail(f"{lib}: no HGMMA in the bf16 kernel {prefix}: {tensor_cores[lib]}")
+            if not found or not all(v.get(op) for v in found.values()):
+                _fail(f"{lib}: no {op} in the kernel {prefix}: {tensor_cores[lib]}")
 
+    phase_end_s['build_and_backward_check'] = time.monotonic() - start
     launch_check = backward_launch_check(fa, args.seed)
     print(json.dumps({"check": launch_check}), flush=True)
     checks, rows = kernel_phase(da, args.seed)
@@ -1892,6 +1999,10 @@ def main() -> int:
         print(json.dumps({"check": c}), flush=True)
     for r in rows:
         print(json.dumps({"timing": r}), flush=True)
+    phase_end_s['lm_kernel_phases'] = time.monotonic() - start
+    decode_launches = run_window("decode_launches", args.seed)
+    print(json.dumps({"decode_launches": decode_launches}), flush=True)
+    phase_end_s['decode_launches_window'] = time.monotonic() - start
 
     serve = serving_phase(ContinuousBatcher, LMConfig, DecoderLM, da, args.seed)
     model, cfg = serve.pop("_model"), serve.pop("_cfg")
@@ -1899,31 +2010,39 @@ def main() -> int:
     serve_tokens = serve.pop("_tokens")
     serve["profile"] = run_window("lm_serving", args.seed)
     print(json.dumps({"serving": serve}), flush=True)
+    phase_end_s['lm_serving'] = time.monotonic() - start
     generate = generate_phase(make_generate_fn, da, model, cfg, args.seed)
     gen_prompts = generate.pop("_prompts")
     generate["profile"] = run_window("generate", args.seed)
     print(json.dumps({"generate": generate}), flush=True)
+    phase_end_s['generate'] = time.monotonic() - start
     speculative = speculative_phase(spec_mod, lm_mod, da, model, cfg,
                                     gen_prompts[0], args.seed)
     print(json.dumps({"speculative": speculative}), flush=True)
+    phase_end_s['speculative'] = time.monotonic() - start
     dense_serve = dense_serving_phase(ContinuousBatcher, da, model, cfg,
                                       serve_prompts)
     print(json.dumps({"dense_serving": dense_serve}), flush=True)
+    phase_end_s['dense_serving'] = time.monotonic() - start
     del model
     torch.cuda.empty_cache()
     exact = exactness_phase(ContinuousBatcher, make_generate_fn, spec_mod, lm_mod,
                             da, cfg, serve_prompts, args.seed)
     print(json.dumps({"exactness_f32": exact}), flush=True)
+    phase_end_s['exactness_f32'] = time.monotonic() - start
     unfused = unfused_phase(ContinuousBatcher, DecoderLM, da, cfg, args.seed)
     print(json.dumps({"unfused": unfused}), flush=True)
+    phase_end_s['unfused'] = time.monotonic() - start
     int8_serve = int8_serving_phase(ContinuousBatcher, DecoderLM, da, cfg,
                                     serve_prompts, serve_tokens, args.seed)
     int8_serve["quant_dense"] = quant_dense
     int8_serve["profile"] = run_window("int8_serving", args.seed)
     print(json.dumps({"int8_serving": int8_serve}), flush=True)
+    phase_end_s['int8_serving'] = time.monotonic() - start
     sim_exact = sim_exactness_phase(ContinuousBatcher, DecoderLM, da, cfg,
                                     serve_prompts, args.seed)
     print(json.dumps({"sim_exactness": sim_exact}), flush=True)
+    phase_end_s['sim_exactness'] = time.monotonic() - start
     torch.cuda.empty_cache()
 
     vchecks, vrows = attention_kernel_phase(fa, args.seed)
@@ -1931,13 +2050,16 @@ def main() -> int:
         print(json.dumps({"check": c}), flush=True)
     for r in vrows:
         print(json.dumps({"timing": r}), flush=True)
+    phase_end_s['vit_kernel_phase'] = time.monotonic() - start
     vit_serve = vit_serving_phase(vit_mod, vit_serving, fa, args.seed)
     vit_serve["profile"] = run_window("vit_serving", args.seed)
     print(json.dumps({"vit_serving": vit_serve}), flush=True)
+    phase_end_s['vit_serving'] = time.monotonic() - start
     torch.cuda.empty_cache()
     vit_train = vit_training_phase(vit_mod, train_mod, trainer_mod, data_mod, fa, args.seed)
     vit_train["profile_3_steps"] = run_window("vit_training", args.seed)
     print(json.dumps({"vit_training": vit_train}), flush=True)
+    phase_end_s['vit_training'] = time.monotonic() - start
 
     src = "walkai_nos_tpu_torch/csrc/"
     replaces = {
@@ -2008,13 +2130,16 @@ def main() -> int:
         json.dump({
             "card": smi, "ptxas": ptxas, "tensor_core_instructions": tensor_cores,
             "checks": [launch_check] + checks + vchecks,
+            "decode_launches": decode_launches,
             "timing": rows + vrows,
             "serving": serve, "generate": generate, "speculative": speculative,
             "dense_serving": dense_serve, "exactness_f32": exact,
             "unfused": unfused, "int8_serving": int8_serve,
             "sim_exactness": sim_exact, "vit_serving": vit_serve,
             "vit_training": vit_train, "kernels": kernels,
+            "phase_end_s": phase_end_s,
         }, f, indent=1)
+    print(json.dumps({"phase_end_s": phase_end_s}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -812,3 +812,159 @@ def test_decoder_dense_cache_on_the_card_matches_cpu(cuda, kvh, decode_kernel):
             logits.append(model(tokens[:, 80:85].to(dev), cache))
         out.append(torch.cat([x.float().cpu() for x in logits], 1))
     torch.testing.assert_close(out[0], out[1], atol=1e-4, rtol=1e-4)
+
+
+# -- K1 and K7: the cp.async ring and the visible-range split ------------------
+
+
+def _rows_close(got, want, dtype):
+    """Per (batch row, head) rule of `_close_rel`: outputs over long
+    caches are small, so each row is held to its own scale."""
+    for g, w in zip(got.flatten(0, 1), want.flatten(0, 1)):
+        _close_rel(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_short_visible_range_leaves_splits_empty(cuda, dtype):
+    """S 2048 with rows at index 0, 63, 64 and past the cache: most
+    splits of the first three rows find no visible tile."""
+    q, k, v = _dense_case(cuda, dtype, b=4, h=8, kvh=2, steps=2, cache_len=2048,
+                          seed=3)
+    for index in ([0, 63, 64, 2100], [2100, 64, 63, 0]):
+        index = torch.tensor(index, device=cuda, dtype=torch.int32)
+        _rows_close(da.decode_attention(q, k, v, index),
+                    da.decode_attention_reference(q, k, v, index), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_more_tiles_per_split_than_stages(cuda, dtype):
+    """S 8192 at one batch row: each CTA walks many tiles through its
+    ring, which wraps around its stages."""
+    q, k, v = _dense_case(cuda, dtype, b=1, h=8, kvh=1, steps=1, cache_len=8192,
+                          seed=4)
+    for index in (8191, 5000):
+        _rows_close(da.decode_attention(q, k, v, index),
+                    da.decode_attention_reference(q, k, v, index), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [256, 80])
+def test_dense_decode_wide_and_unaligned_heads_long_cache(cuda, dtype, hd):
+    """head_dim 256 (Q fragments read from shared memory, 32-row chunks)
+    and 80 (padded to 128 columns) over a 2048-row cache, ragged."""
+    q, k, v = _dense_case(cuda, dtype, b=3, h=16, kvh=2, hd=hd, steps=3,
+                          cache_len=2048, seed=hd)
+    index = torch.tensor([5, 1500, 2047], device=cuda, dtype=torch.int32)
+    _rows_close(da.decode_attention(q, k, v, index),
+                da.decode_attention_reference(q, k, v, index), dtype)
+
+
+def _long_paged_case(dev, dtype, int8, steps, seed=0):
+    """A GQA group (8 heads over 2 kv heads) over an 8-block (1024-row)
+    table: slots at 0, 127, 128, 1023 and past capacity; with `int8` the
+    pools also quantized (with their scale pools)."""
+    c = _case(dev, dtype, b=5, h=8, kvh=2, steps=steps, nlog=8, seed=seed)
+    c["index"] = torch.tensor([0, 127, 128, 1023, 1100], device=dev,
+                              dtype=torch.int32)
+    if int8:
+        c["kq"], c["ks"] = da.quantize_kv_rows(c["kp"], "int8")
+        c["vq"], c["vs"] = da.quantize_kv_rows(c["vp"], "int8")
+    return c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("inject", [False, True])
+def test_paged_attention_ragged_long_table(cuda, dtype, int8, inject):
+    """K1 over an 8-block table, slots at 0, 127, 128, 1023 and past
+    capacity, each arm with and without fresh-row injection."""
+    c = _long_paged_case(cuda, dtype, int8, steps=3)
+    kn, vn = (c["kn"], c["vn"]) if inject else (None, None)
+    if int8:
+        got = da._paged_attention_cuda(c["q"], c["kq"], c["vq"], c["table"],
+                                       c["index"], kn, vn, c["ks"], c["vs"])
+        kp = (c["kq"].float() * c["ks"][..., None]).to(dtype)
+        vp = (c["vq"].float() * c["vs"][..., None]).to(dtype)
+    else:
+        got = da._paged_attention_cuda(c["q"], c["kp"], c["vp"], c["table"],
+                                       c["index"], kn, vn)
+        kp, vp = c["kp"].clone(), c["vp"].clone()
+    if inject:
+        da.scatter_paged_rows(kp, vp, c["kn"], c["vn"], c["table"], c["index"])
+    want = da.paged_decode_attention_reference(c["q"], kp, vp, c["table"],
+                                               c["index"])
+    _rows_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_kernels_are_bitwise_repeatable(cuda, int8):
+    """Two calls on the same inputs give the same bits (K1 and K7): the
+    splits combine in a fixed order whichever CTA finishes last."""
+    c = _long_paged_case(cuda, torch.bfloat16, int8, steps=1)
+    pools = (c["kq"], c["vq"]) if int8 else (c["kp"], c["vp"])
+    sc = (c["ks"], c["vs"]) if int8 else (None, None)
+    runs = [da._paged_attention_cuda(c["q"], *pools, c["table"], c["index"],
+                                     c["kn"], c["vn"], *sc) for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    q, k, v = _dense_case(cuda, torch.bfloat16, b=4, h=8, kvh=2, steps=1,
+                          cache_len=2048)
+    index = torch.tensor([2000, 5, 1024, 700], device=cuda, dtype=torch.int32)
+    runs = [da.decode_attention(q, k, v, index) for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_attention_rows_do_not_depend_on_the_batch(cuda, int8):
+    """Slot 0's output is bit-identical whatever the other slots hold and
+    wherever their indices lie (the split count comes from the shapes,
+    each split's share of the tiles from the slot's own index)."""
+    c = _long_paged_case(cuda, torch.bfloat16, int8, steps=1)
+    other = _long_paged_case(cuda, torch.bfloat16, int8, steps=1, seed=1)
+    q2 = c["q"].clone()
+    q2[1:] = other["q"][1:]
+    idx2 = torch.tensor([0, 1023, 5, 1100, 300], device=cuda, dtype=torch.int32)
+    idx2[0] = c["index"][0] = 900
+    pools = (c["kq"], c["vq"]) if int8 else (c["kp"], c["vp"])
+    sc = (c["ks"], c["vs"]) if int8 else (None, None)
+    a = da._paged_attention_cuda(c["q"], *pools, c["table"], c["index"],
+                                 c["kn"], c["vn"], *sc)
+    kn2, vn2 = c["kn"].clone(), c["vn"].clone()
+    kn2[1:], vn2[1:] = other["kn"][1:], other["vn"][1:]
+    b = da._paged_attention_cuda(q2, *pools, c["table"], idx2, kn2, vn2, *sc)
+    torch.testing.assert_close(a[0], b[0], atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("h, kvh, hd, steps", [
+    (16, 1, 64, 8),    # 128 query rows a kv head: two row chunks in bf16
+    (8, 2, 128, 3),    # head_dim 128
+])
+def test_paged_attention_row_chunks_and_wide_heads(cuda, int8, h, kvh, hd, steps):
+    """K1 in bf16 beyond the serving shape: a group of more rows than one
+    CTA holds, and a 128-wide head, with fresh-row injection, in both
+    pool arms."""
+    c = _case(cuda, torch.bfloat16, b=4, h=h, kvh=kvh, hd=hd, steps=steps,
+              nlog=4, seed=hd + steps)
+    kp, vp = c["kp"], c["vp"]
+    sc = (None, None)
+    if int8:
+        kp, ks = da.quantize_kv_rows(kp, "int8")
+        vp, vs = da.quantize_kv_rows(vp, "int8")
+        sc = (ks, vs)
+    got = da._paged_attention_cuda(c["q"], kp, vp, c["table"], c["index"],
+                                   c["kn"], c["vn"], *sc)
+    if int8:
+        kp = (kp.float() * sc[0][..., None]).to(torch.bfloat16)
+        vp = (vp.float() * sc[1][..., None]).to(torch.bfloat16)
+    kp, vp = da.scatter_paged_rows(kp.clone(), vp.clone(), c["kn"], c["vn"],
+                                   c["table"], c["index"])
+    want = da.paged_decode_attention_reference(c["q"], kp, vp, c["table"],
+                                               c["index"])
+    _rows_close(got, want, torch.bfloat16)

@@ -26,6 +26,13 @@ Three kernels carry the decode step (sources in `csrc/`, built by
   through the block table, tail blocks never read, GQA rows served from
   one K/V read per kv head, and optional injection of the step's fresh
   K/V rows (what `_fused_stream_kernel` does in VMEM).
+- K1 and K7 share one body, `decode_mma.cuh`: bf16 products on tensor
+  cores (mma.sync through ldmatrix), K/V tiles through a cp.async ring,
+  each cell's visible tiles split over CTAs by its own row's index (the
+  split count from the shapes and the card only), and the splits
+  combined in split order: by each cell's last CTA to finish in a
+  one-step bf16 call, else by a second kernel. A row's result depends on
+  its own inputs and index only, and is bitwise repeatable.
 - `qkv_rope.cu` (K2) replaces the projection half of `_fused_qkv_pallas`:
   one launch computes `x @ w_qkv` for every slot's rows (the weight is
   read once), adds the bias, rounds to x's dtype and applies RoPE.
@@ -99,12 +106,9 @@ PAGE_ROWS = 128
 # chunks go through the gather + masked-attention path, as in JAX.
 MAX_KERNEL_STEPS = 8
 
-# K7's limits: query rows per kv head (group * steps) one CTA holds at
-# most (TinyLlama's group of 8 at MAX_KERNEL_STEPS; more rows take more
-# CTAs), the widest head it takes, and the shared memory a CTA may have.
-_K7_CHUNK_ROWS = 64
+# K7's widest head, and the shared memory a CTA may have.
 _K7_MAX_HEAD_DIM = 256
-_K7_MAX_SMEM = 232448
+_MAX_SMEM = 232448
 
 # Launch counts per kernel: each wrapper adds one where it launches its
 # kernel, and nowhere else.
@@ -484,32 +488,117 @@ def _split(units: int, cells: int, device: torch.device, quantum: int = 1):
     return per, -(-units // per)
 
 
-_TILE = 64  # K7's cache rows per streamed tile
+# The decode kernels' geometry (csrc/decode_mma.cuh): keys per tile of the
+# bf16 arms and of K1's f32 arm, keys per tile of K7's f32 arm, query rows
+# a bf16 CTA holds, and the most splits a cell may take.
+_KEYS = 64
+_K7_F32_KEYS = 32
+_MMA_ROWS = 64
+_MAX_SPLITS = 64
+# CTAs per SM the split aims for: a call's splits fill the card about twice.
+_CTAS_PER_SM = 2
 
 
-def _k7_smem_bytes(rows: int, hd: int, itemsize: int) -> int:
-    """Shared memory of a K7 CTA holding `rows` query rows
-    (`smem_bytes` in csrc/decode_attention.cu): f32 q, accumulator,
-    scores and three row vectors, and one K and one V tile whose rows
-    are padded by one f32 or two bf16 elements."""
-    pad = 1 if itemsize == 4 else 2
-    return ((2 * rows * hd + rows * _TILE + 3 * rows) * 4
-            + 2 * _TILE * (hd + pad) * itemsize)
+def _r16(x: int) -> int:
+    return -(-x // 16) * 16
 
 
-def _k7_chunk(rows: int, hd: int, itemsize: int) -> int:
-    """Query rows per K7 CTA: up to 64, halved until its tiles fit."""
-    chunk = min(rows, _K7_CHUNK_ROWS)
-    while chunk > 1 and _k7_smem_bytes(chunk, hd, itemsize) > _K7_MAX_SMEM:
+def _mma_smem_bytes(chunk: int, hd: int, int8_pool: bool, paged: bool,
+                    nlog: int = 0) -> int:
+    """Shared memory of a bf16-arm CTA holding `chunk` query rows
+    (`mma_layout` in csrc/decode_mma.cuh): the cp.async ring of K/V tiles
+    (later the warps' merge), the Q tile (rows padded by 16 bytes), the
+    per-warp int8 widening buffers and the table entries."""
+    dmax = 64 if hd <= 64 else 128 if hd <= 128 else 256
+    stage = 2 * _KEYS * dmax * (1 if int8_pool else 2)
+    stage += 2 * _KEYS * 4 if paged else 0
+    ring = (4 if int8_pool else 3) * stage
+    merge = 4 * 16 * (dmax + 2) * 4
+    total = _r16(max(ring, merge))
+    total += _r16(16 * -(-chunk // 16) * (dmax + 8) * 2)
+    total += 4 * 2 * 16 * dmax * 2 if int8_pool else 0
+    return total + (_r16(nlog * 4) if paged else 0)
+
+
+def _fma_smem_bytes(chunk: int, hd: int, int8_pool: bool, paged: bool,
+                    nlog: int = 0) -> int:
+    """Shared memory of an f32-arm CTA (`fma_layout` in
+    csrc/decode_mma.cuh): a two-stage ring of K/V tiles (K1: 64 keys, K7:
+    32), f32 q, accumulator, scores and three row vectors."""
+    keys = _KEYS if paged else _K7_F32_KEYS
+    rs = _r16(hd) if int8_pool else -(-hd // 4) * 4 + 4
+    stage = _r16(2 * keys * rs * (1 if int8_pool else 4)
+                 + (2 * keys * 4 if paged else 0))
+    total = _r16(2 * stage + (2 * chunk * hd + chunk * keys + 3 * chunk) * 4)
+    return total + (_r16(nlog * 4) if paged else 0)
+
+
+def _chunk(rows: int, hd: int, dtype, *, int8_pool=False, paged=False,
+           nlog=0) -> int:
+    """Query rows per CTA: up to 64 (the bf16 arms' four m16 tiles),
+    halved until the CTA's shared memory fits."""
+    size = _mma_smem_bytes if dtype == torch.bfloat16 else _fma_smem_bytes
+    chunk = min(rows, _MMA_ROWS)
+    while chunk > 1 and size(chunk, hd, int8_pool, paged, nlog) > _MAX_SMEM:
         chunk = -(-chunk // 2)
     return chunk
 
 
+def _nsplit(ntiles: int, cells: int, device: torch.device,
+            round_up: bool) -> int:
+    """Splits of each cell's key tiles, so that the call's CTAs fill the
+    card about `_CTAS_PER_SM` times: at most that (`round_up` False: no SM
+    takes a third CTA, measured best for K7, whose dense cache is sized to
+    the live length) or at least that (True: K1, whose table spans the
+    slot's capacity while the visible range is often half of it). A
+    function of the shapes and the card only; each split's share of the
+    tiles is computed on the device from its own row's index, so a row's
+    result depends on its own index and never on the other rows."""
+    slots = _CTAS_PER_SM * _sm_count(device.index or 0)
+    target = -(-slots // cells) if round_up else slots // cells
+    return max(1, min(ntiles, target, _MAX_SPLITS))
+
+
+# Cells of at most this many outputs (a CTA's chunk rows x head_dim) in
+# the bf16 arms are combined by their last CTA to finish, chosen by a
+# per-cell ticket; larger cells, and the f32 arms, by a second kernel.
+_TICKET_OUTPUTS = 512
+
+# The tickets, per device: int32 zeros that every call leaves zero. Calls
+# on one device share them, so they run on one stream at a time.
+_TICKETS: dict[int, torch.Tensor] = {}
+
+
+def _tickets(cells: int, chunk: int, hd: int, dtype, device: torch.device):
+    """The ticket buffer for a call whose last CTAs combine, or None."""
+    if dtype != torch.bfloat16 or hd < 8 or chunk * hd > _TICKET_OUTPUTS:
+        return None
+    t = _TICKETS.get(device.index or 0)
+    if t is None or t.numel() < cells:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the decode kernels' tickets must exist before CUDA graph "
+                "capture: call the kernel once at this shape first"
+            )
+        t = torch.zeros(max(cells, 4096), dtype=torch.int32, device=device)
+        _TICKETS[device.index or 0] = t
+    return t
+
+
+def _partials(b, kvh, nsplit, rows, hd, device):
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty(b, kvh, nsplit, rows, **f32),
+            torch.empty(b, kvh, nsplit, rows, **f32),
+            torch.empty(b, kvh, nsplit, rows, hd, **f32))
+
+
 def _decode_attention_cuda(q, k, v, index):
-    """Launch K7 (split pass + combine). q [b, h, steps, hd]; k/v [b,
-    kv_heads, cache_len, hd]; index a [1] (shared) or [b] (per-row)
-    int32 tensor on the device. The group * steps query rows of a kv
-    head go to CTAs in chunks of at most 64 (`_k7_chunk`)."""
+    """Launch K7: the split kernel, then a combine kernel unless each
+    cell's last CTA combines (`_tickets`). q [b, h, steps, hd]; k/v [b,
+    kv_heads, cache_len, hd]; index a [1] (shared) or [b] (per-row) int32
+    tensor on the device. The group * steps query rows of a kv head go to
+    CTAs in chunks of at most 64 (`_chunk`); each cell's visible tiles go
+    to `_nsplit` CTAs, each taking its share from its own row's index."""
     _require_cuda(q, k, v, index)
     b, h, steps, hd = q.shape
     kvh, cache_len = k.shape[1], k.shape[2]
@@ -537,24 +626,23 @@ def _decode_attention_cuda(q, k, v, index):
     idx = index.reshape(-1).to(torch.int32).contiguous()
     q = q.contiguous()
     rows = (h // kvh) * steps
-    chunk = _k7_chunk(rows, hd, q.element_size())
-    tps, nsplit = _split(
-        -(-cache_len // _TILE), b * kvh * -(-rows // chunk), q.device
-    )
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m_part = torch.empty(b, kvh, nsplit, rows, **f32)
-    l_part = torch.empty(b, kvh, nsplit, rows, **f32)
-    acc_part = torch.empty(b, kvh, nsplit, rows, hd, **f32)
+    chunk = _chunk(rows, hd, q.dtype)
+    cells = b * kvh * -(-rows // chunk)
+    keys = _KEYS if q.dtype == torch.bfloat16 else _K7_F32_KEYS
+    nsplit = _nsplit(-(-cache_len // keys), cells, q.device, round_up=False)
+    m_part, l_part, acc_part = _partials(b, kvh, nsplit, rows, hd, q.device)
+    tickets = _tickets(cells, chunk, hd, q.dtype, q.device)
     out = torch.empty_like(q)
     fn = _kernel_fn(
         "decode_attention", "decode_attention_" + _suffix(q),
-        [_P] * 8 + [_I] * 10 + [ctypes.c_float, _P],
+        [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P],
     )
     code = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
         m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-        out.data_ptr(), b, h, kvh, steps, hd, cache_len, tps, nsplit,
-        int(per_row), chunk, hd ** -0.5,
+        out.data_ptr(), None if tickets is None else tickets.data_ptr(),
+        b, h, kvh, steps, hd, cache_len,
+        nsplit, int(per_row), chunk, hd ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _check(code, "decode_attention")
@@ -601,11 +689,19 @@ def _vector_elems(t: torch.Tensor) -> int:
     return 16 // t.element_size()
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it when its data does not start on 16 bytes (the
+    kernels copy its rows with 16-byte cp.async)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _paged_attention_cuda(
     q, k_pool, v_pool, table, index, k_new, v_new,
     k_scales=None, v_scales=None,
 ):
-    """Launch K1 (split pass + combine). q [b, h, steps, hd];
+    """Launch K1: the split kernel (each split takes its share of its own
+    slot's visible tiles), then a combine kernel unless each cell's last
+    CTA combines (`_tickets`). q [b, h, steps, hd];
     k_new/v_new None or [b, kv_heads, steps, hd] fresh rows injected at
     positions index .. index+steps-1; k/v_scales None or the f32
     [nb, kv_heads, PAGE_ROWS] scale pools of a quantized pool (int8, or
@@ -641,29 +737,33 @@ def _paged_attention_cuda(
                     f"scale pools must be f32 [{nb}, {kvh}, {page}]; got "
                     f"{s.dtype} {tuple(s.shape)}"
                 )
-        k_scales = k_scales.contiguous()
-        v_scales = v_scales.contiguous()
+        k_scales = _aligned(k_scales.contiguous())
+        v_scales = _aligned(v_scales.contiguous())
     rows = (h // kvh) * steps
     if (k_new is None) != (v_new is None):
         raise ValueError("k_new and v_new go together")
     if k_new is not None:
-        k_new = k_new.to(q.dtype).contiguous()
-        v_new = v_new.to(q.dtype).contiguous()
+        k_new = _aligned(k_new.to(q.dtype).contiguous())
+        v_new = _aligned(v_new.to(q.dtype).contiguous())
     q = q.contiguous()
     table = table.to(torch.int32).contiguous()
     index = index.to(torch.int32).contiguous()
     nlog = table.shape[1]
-    bps, nsplit = _split(nlog, b * kvh, q.device)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m_part = torch.empty(b, kvh, nsplit, rows, **f32)
-    l_part = torch.empty(b, kvh, nsplit, rows, **f32)
-    acc_part = torch.empty(b, kvh, nsplit, rows, hd, **f32)
+    # The f32 arm holds all rows of a kv head in one CTA (its shared
+    # memory bounds the group); the bf16 arms take 64 a CTA, more rows on
+    # more CTAs.
+    chunk = rows if q.dtype == torch.float32 else _chunk(
+        rows, hd, q.dtype, int8_pool=int8, paged=True, nlog=nlog)
+    cells = b * kvh * -(-rows // chunk)
+    nsplit = _nsplit(nlog * PAGE_ROWS // _KEYS, cells, q.device, round_up=True)
+    m_part, l_part, acc_part = _partials(b, kvh, nsplit, rows, hd, q.device)
+    tickets = _tickets(cells, chunk, hd, q.dtype, q.device)
     out = torch.empty_like(q)
     arm = "paged_attention_int8" if int8 else "paged_attention"
     fn = _kernel_fn(
         "paged_attention",
         ("paged_attention_i8_" if int8 else "paged_attention_") + _suffix(q),
-        [_P] * 13 + [_I] * 8 + [ctypes.c_float, _P],
+        [_P] * 14 + [_I] * 8 + [ctypes.c_float, _P],
     )
     code = fn(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -673,8 +773,10 @@ def _paged_attention_cuda(
         None if k_scales is None else k_scales.data_ptr(),
         None if v_scales is None else v_scales.data_ptr(),
         m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-        out.data_ptr(), b, h, kvh, steps, hd, nlog, bps, nsplit,
-        hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream,
+        out.data_ptr(), None if tickets is None else tickets.data_ptr(),
+        b, h, kvh, steps, hd, nlog,
+        nsplit, chunk, hd ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _check(code, arm)
     LAUNCHES[arm] += 1
