@@ -8,9 +8,10 @@ the CUDA toolkit (`nvcc`). It:
 1. builds the port's kernels from `walkai_nos_tpu_torch/csrc/` (nvcc,
    sm_90a) and prints the build seconds, the ptxas resource report per
    kernel and, from `cuobjdump -sass`, the tensor-core instructions
-   (HGMMA, HMMA) of each attention kernel, failing if a bf16 forward or
-   backward kernel (K3/K4, K5, K6) holds no HGMMA or a bf16 or int8-pool
-   decode kernel (K1, K7) no HMMA; then checks, under
+   (HGMMA, HMMA) of each attention and QKV kernel, failing if a bf16
+   forward or backward kernel (K3/K4, K5, K6) holds no HGMMA or a bf16 or
+   int8-pool decode kernel (K1, K7) or a bf16 or int8-weight QKV kernel
+   (K2) no HMMA; then checks, under
    `torch.profiler` (this process's only profiler session), that three
    attention backward calls at the ViT's shape run exactly K5, K6, K5,
    K6, K5, K6 on the device;
@@ -28,8 +29,9 @@ the CUDA toolkit (`nvcc`). It:
    verify's (5 steps, batch 1), an MHA shape, rows at 0, 63, 64 and past a
    2048-row cache, and an 8192-row cache, and times kernel, plain version
    and SDPA over the masked cache; then, in a child process, counts the
-   device kernels of each K1 / K7 call under the profiler (1 where the
-   cell's last CTA combines the splits, 2 where a second kernel does);
+   device kernels of each K1 / K7 / K2 call under the profiler (1 where
+   the cell's last CTA combines the splits, 2 where a second kernel does;
+   K2 always 1, at steps 1 and 8, bf16 and int8 weights);
 4. serves 8 greedy requests (prompts of 40-600 tokens, two sharing a
    256-token prefix, 32 new tokens each) through the port's
    `ContinuousBatcher` at TinyLlama-1.1B width (22 layers, random bf16
@@ -1154,7 +1156,7 @@ def window_lm_serving(seed: int, quant: str | None = None) -> dict:
     return _profile_summary(
         prof, wall, ("int8_" if quant else "") + "profile.txt", da.LAUNCHES,
         {"paged_attention" + arm: "decode_mma_kernel",
-         "qkv_rope" + arm: "qkv_partial_kernel"},
+         "qkv_rope" + arm: "qkv_mma_kernel"},
     )
 
 
@@ -1177,13 +1179,16 @@ def window_generate(seed: int) -> dict:
 
 
 def window_decode_launches(seed: int) -> dict:
-    """Device kernels per K1 / K7 call: 1 where the cell's last CTA
-    combines (a one-step call, at most 512 outputs a cell), 2 where a
-    second kernel does (a multi-step call). Three calls of each case at
-    the serving and generate shapes between ~1 ms spin kernels, which are
-    left out of the count and keep the calls away from the edges of the
-    recording (where the profiler was seen to drop a launch); the
-    profiler must see each wrapper's launch count."""
+    """Device kernels per K1 / K7 / K2 call: for K1 and K7, 1 where the
+    cell's last CTA combines (a one-step call, at most 512 outputs a
+    cell), 2 where a second kernel does (a multi-step call); for K2 (bf16
+    and int8 weights, steps 1 and 8) always 1, its heads' last CTAs
+    adding the splits. Three calls of each case at the serving and
+    generate shapes between ~1 ms spin kernels, which are left out of the
+    count and keep the calls away from the edges of the recording (where
+    the profiler was seen to drop a launch); the profiler must see each
+    wrapper's launch count."""
+    from walkai_nos_tpu_torch.models.lm import quantize_kernel as lm_quantize
     from walkai_nos_tpu_torch.ops import decode_attention as da
 
     dev = torch.device("cuda")
@@ -1203,24 +1208,41 @@ def window_decode_launches(seed: int) -> dict:
     k7 = rnd(b, kvh, 1024, hd), rnd(b, kvh, 1024, hd)
     q1, q8, qv = rnd(b, h, 1, hd), rnd(b, h, 8, hd), rnd(1, h, 5, hd)
     idx = torch.tensor(1000, device=dev, dtype=torch.int32)
-    cases = {  # name: (call, launch counter, device kernels a call)
+    dm = h * hd
+    w = rnd(dm, dm + 2 * kvh * hd) * 0.02
+    wq, wsc = lm_quantize(w)
+    xs = {1: rnd(b, 1, dm), 8: rnd(b, 8, dm)}
+
+    def k2(steps, int8):
+        return lambda: da.qkv_rope_projection(
+            xs[steps], wq if int8 else w, None, steady, num_heads=h,
+            kv_heads=kvh, rope_theta=10000.0, w_scale=wsc if int8 else None)
+
+    mma = "decode_mma_kernel"
+    cases = {  # name: (call, launch counter, device kernels a call, kernel)
         "paged_attention steps 1": (
             lambda: da.paged_decode_attention(q1, kp, vp, table, steady),
-            "paged_attention", 1),
+            "paged_attention", 1, mma),
         "paged_attention steps 8": (
             lambda: da.paged_decode_attention(q8, kp, vp, table, steady),
-            "paged_attention", 2),
+            "paged_attention", 2, mma),
         "paged_attention_int8 steps 1": (
             lambda: da.paged_decode_attention(q1, kq, vq, table, steady,
                                               k_scales=ks, v_scales=vs),
-            "paged_attention_int8", 1),
+            "paged_attention_int8", 1, mma),
         "decode_attention generate": (
-            lambda: da.decode_attention(q1, *k7, idx), "decode_attention", 1),
+            lambda: da.decode_attention(q1, *k7, idx), "decode_attention", 1,
+            mma),
         "decode_attention verify": (
             lambda: da.decode_attention(qv, k7[0][:1], k7[1][:1], idx),
-            "decode_attention", 2),
+            "decode_attention", 2, mma),
     }
-    for call, _, _ in cases.values():
+    for steps in (1, 8):
+        for int8 in (False, True):
+            arm = "qkv_rope_int8" if int8 else "qkv_rope"
+            cases[f"{arm} steps {steps}"] = (k2(steps, int8), arm, 1,
+                                             "qkv_mma_kernel")
+    for call, _, _, _ in cases.values():
         call()
     torch.cuda.synchronize()
     calls = 3
@@ -1228,7 +1250,7 @@ def window_decode_launches(seed: int) -> dict:
     counted = []
 
     def run():
-        for call, counter, _ in cases.values():
+        for call, counter, _, _ in cases.values():
             before = da.LAUNCHES[counter]
             torch.cuda._sleep(2_000_000)
             for _ in range(calls):
@@ -1248,10 +1270,11 @@ def window_decode_launches(seed: int) -> dict:
         elif current is not None:
             current.append(_demangled_name(e.name).split("<")[0])
     out = {}
-    for (name, (_, _, want)), seen, n in zip(cases.items(), segments, counted):
+    for (name, (_, _, want, kernel)), seen, n in zip(cases.items(), segments,
+                                                     counted):
         out[name] = {"device_kernels_per_call": len(seen) / calls,
                      "kernels": sorted(set(seen)), "wrapper_launches": n}
-        if n != calls or len(seen) != want * calls or seen.count("decode_mma_kernel") != calls:
+        if n != calls or len(seen) != want * calls or seen.count(kernel) != calls:
             _fail(f"{name}: {n} wrapper launches, device kernels {seen}; "
                   f"want {want} a call")
     if len(segments) != len(cases):
@@ -1972,17 +1995,19 @@ def main() -> int:
             print(f"ptxas {name}: {line}", flush=True)
     tensor_cores = {lib: _tensor_core_counts(libs[lib]._name)
                     for lib in ("flash_attention", "flash_attention_bwd",
-                                "decode_attention", "paged_attention")}
+                                "decode_attention", "paged_attention",
+                                "qkv_rope")}
     print(json.dumps({"tensor_core_instructions": tensor_cores}), flush=True)
     # Every bf16 attention kernel (K3/K4 forward, K5, K6) runs its products
-    # as wgmma, and every bf16 or int8-pool decode kernel (K1, K7) as
-    # mma.sync: each of their instantiations must hold HGMMA / HMMA
-    # instructions.
+    # as wgmma, and every bf16 or int8-pool decode kernel (K1, K7) and every
+    # bf16 or int8-weight QKV kernel (K2) as mma.sync: each of their
+    # instantiations must hold HGMMA / HMMA instructions.
     for lib, prefixes, op in (
             ("flash_attention", ("flash_fwd_wgmma",), "HGMMA"),
             ("flash_attention_bwd", ("flash_dq_wgmma", "flash_dkv_wgmma"), "HGMMA"),
             ("decode_attention", ("decode_mma_kernel",), "HMMA"),
-            ("paged_attention", ("decode_mma_kernel",), "HMMA")):
+            ("paged_attention", ("decode_mma_kernel",), "HMMA"),
+            ("qkv_rope", ("qkv_mma_kernel",), "HMMA")):
         for prefix in prefixes:
             found = {k: v for k, v in tensor_cores[lib].items() if prefix in k}
             if not found or not all(v.get(op) for v in found.values()):

@@ -968,3 +968,161 @@ def test_paged_attention_row_chunks_and_wide_heads(cuda, int8, h, kvh, hd, steps
     want = da.paged_decode_attention_reference(c["q"], kp, vp, c["table"],
                                                c["index"])
     _rows_close(got, want, torch.bfloat16)
+
+
+# K2 (csrc/qkv_rope.cu) beyond the serving shape: rows per call M = batch
+# x steps of 8, 64 (one CTA's rows) and 72 (two row blocks), head_dim 32,
+# 64 and 128, a d_model that is not a multiple of the 64-row k tile (200)
+# and one whose bf16 rows do not start on 16 bytes (196). Per slot, max
+# |kernel - plain| <= REL * max |plain| + ABS (the rule of chip_smoke.py):
+# bf16 rounds the f32 sum once on both sides but sums in another order.
+K2_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 4e-3)}
+K2_SHAPES = {  # name: (batch, steps, d_model)
+    "m8": (8, 1, 512), "m64": (8, 8, 512), "m72_k200": (9, 8, 200),
+    "m8_k196": (8, 1, 196),
+}
+
+
+def _k2_case(dev, dtype, shape, hd, *, int8=False, h=4, kvh=2, seed=0):
+    b, steps, dm = K2_SHAPES[shape]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*s, std=1.0):
+        return (torch.randn(s, generator=gen, device=dev) * std).to(dtype)
+
+    dout = (h + 2 * kvh) * hd
+    w = rnd(dm, dout, std=0.05)
+    c = dict(x=rnd(b, steps, dm), w=w, bias=rnd(dout, std=0.1),
+             index=torch.randint(0, 3000, (b,), generator=gen, device=dev,
+                                 dtype=torch.int32),
+             proj=dict(num_heads=h, kv_heads=kvh))
+    if int8:
+        c["w"], c["proj"]["w_scale"] = tlm.quantize_kernel(w)
+    return c
+
+
+def _k2_close(got, want, dtype):
+    rel, floor = K2_TOL[dtype]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        for gs, ws in zip(g.float(), w.float()):  # one slot at a time
+            err = (gs - ws).abs().max().item()
+            assert err <= rel * ws.abs().max().item() + floor, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("shape", sorted(K2_SHAPES))
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("bias, rope", [
+    (False, None), (True, None), (False, 10000.0), (True, 10000.0)])
+def test_qkv_rope_shapes_match_plain(cuda, dtype, int8, shape, hd, bias, rope):
+    c = _k2_case(cuda, dtype, shape, hd, int8=int8, seed=hd)
+    b = c["bias"] if bias else None
+    got = da.qkv_rope_projection(c["x"], c["w"], b, c["index"],
+                                 rope_theta=rope, **c["proj"])
+    want = da.qkv_rope_reference(c["x"], c["w"], b, c["index"],
+                                 rope_theta=rope, **c["proj"])
+    _k2_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("shape", ["m8", "m64", "m72_k200"])
+def test_qkv_rope_one_launch_and_repeatable(cuda, int8, shape):
+    """Each call moves its arm's launch counter by one, and two calls on
+    the same inputs give the same bits (the cells' tickets are left
+    zero, so the second call combines as the first did)."""
+    c = _k2_case(cuda, torch.bfloat16, shape, 64, int8=int8, seed=1)
+    arm, other = (("qkv_rope_int8", "qkv_rope") if int8
+                  else ("qkv_rope", "qkv_rope_int8"))
+    outs = []
+    for _ in range(2):
+        before = dict(da.LAUNCHES)
+        outs.append(da.qkv_rope_projection(
+            c["x"], c["w"], c["bias"], c["index"], rope_theta=10000.0,
+            **c["proj"]))
+        assert da.LAUNCHES[arm] == before[arm] + 1
+        assert da.LAUNCHES[other] == before[other]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_qkv_rope_rows_do_not_depend_on_the_batch_at_steps_8(cuda, int8):
+    """Slot 0's q / k_new / v_new at 8 steps are bit-identical whatever
+    the other slots' rows hold."""
+    c = _k2_case(cuda, torch.bfloat16, "m64", 64, int8=int8, seed=2)
+    other = _k2_case(cuda, torch.bfloat16, "m64", 64, seed=3)
+    x2 = c["x"].clone()
+    x2[1:] = other["x"][1:]
+    first = da.qkv_rope_projection(c["x"], c["w"], c["bias"], c["index"],
+                                   rope_theta=10000.0, **c["proj"])
+    second = da.qkv_rope_projection(x2, c["w"], c["bias"], c["index"],
+                                    rope_theta=10000.0, **c["proj"])
+    for a, b in zip(first, second):
+        assert torch.equal(a[0], b[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ["m64", "m72_k200"])
+def test_qkv_rope_sim_arm_bitwise_at_steps_8(cuda, dtype, shape):
+    """A full-precision weight with a scale row of ones gives the
+    unquantized arm's bits, with and without a bias."""
+    c = _k2_case(cuda, dtype, shape, 64, seed=4)
+    ones = torch.ones(c["w"].shape[1], device=cuda)
+    for b in (None, c["bias"]):
+        plain = da.qkv_rope_projection(c["x"], c["w"], b, c["index"],
+                                       rope_theta=10000.0, **c["proj"])
+        sim = da.qkv_rope_projection(c["x"], c["w"], b, c["index"],
+                                     rope_theta=10000.0, w_scale=ones,
+                                     **c["proj"])
+        for a, s in zip(plain, sim):
+            assert torch.equal(a, s)
+
+
+@pytest.mark.cuda
+def test_qkv_rope_raises_on_what_it_does_not_take(cuda):
+    """head_dim past 128, or not a whole 16-byte load of the weight,
+    raises before any launch."""
+    x = torch.zeros(2, 1, 64, dtype=torch.bfloat16, device=cuda)
+    idx = torch.zeros(2, dtype=torch.int32, device=cuda)
+    before = dict(da.LAUNCHES)
+    with pytest.raises(ValueError, match="head_dim"):
+        da.qkv_rope_projection(
+            x, torch.zeros(64, 4 * 136, dtype=torch.bfloat16, device=cuda),
+            None, idx, num_heads=2, kv_heads=1)
+    with pytest.raises(ValueError, match="head_dim"):
+        da.qkv_rope_projection(
+            x, torch.zeros(64, 4 * 40, dtype=torch.int8, device=cuda), None,
+            idx, num_heads=2, kv_heads=1,
+            w_scale=torch.ones(4 * 40, device=cuda))
+    assert da.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("steps", [1, 8])
+def test_qkv_rope_long_splits_wrap_the_ring(cuda, dtype, int8, steps):
+    """d_model 8192 over 40 heads of 64: each split is 13 k tiles, more
+    than the stages of either ring, so every slot is reused."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, h, kvh, hd, dm = 8, 32, 4, 64, 8192
+    k_per, ksplit, _ = da._qkv_geometry(dm, h + 2 * kvh, b * steps,
+                                        da._sm_count(cuda.index or 0))
+    assert k_per // 64 > 4
+    w = (torch.randn(dm, (h + 2 * kvh) * hd, generator=gen, device=cuda)
+         * 0.01).to(dtype)
+    proj = dict(num_heads=h, kv_heads=kvh, rope_theta=10000.0)
+    if int8:
+        w, proj["w_scale"] = tlm.quantize_kernel(w)
+    x = torch.randn(b, steps, dm, generator=gen, device=cuda).to(dtype)
+    idx = torch.arange(b, device=cuda, dtype=torch.int32) * 100
+    bias = (torch.randn((h + 2 * kvh) * hd, generator=gen, device=cuda)
+            * 0.1).to(dtype)
+    _k2_close(da.qkv_rope_projection(x, w, bias, idx, **proj),
+              da.qkv_rope_reference(x, w, bias, idx, **proj), dtype)

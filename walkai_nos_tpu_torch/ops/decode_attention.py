@@ -35,7 +35,11 @@ Three kernels carry the decode step (sources in `csrc/`, built by
   its own inputs and index only, and is bitwise repeatable.
 - `qkv_rope.cu` (K2) replaces the projection half of `_fused_qkv_pallas`:
   one launch computes `x @ w_qkv` for every slot's rows (the weight is
-  read once), adds the bias, rounds to x's dtype and applies RoPE.
+  read once for up to 64 rows; bf16 products on tensor cores, the weight
+  streamed by the TMA unit through a ring of stages, its k dimension
+  split over CTAs by `_qkv_geometry` and the splits added in split order
+  by each head's last CTA), scales, adds the bias, rounds to x's dtype and
+  applies RoPE.
 
 `fused_qkv_paged_attention` on a CUDA tensor is K2 followed by K1 with
 injection; it returns `(o, k_new, v_new)` and the CALLER scatters the
@@ -476,16 +480,26 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _split(units: int, cells: int, device: torch.device, quantum: int = 1):
-    """Split `units` of sequential work (cache blocks, k rows) across
-    CTAs so that `cells` independent cells fill ~2 CTAs per SM. Returns
-    (units per split, splits). A function of the shapes and the card
-    only, never of the data, so a cell's result does not depend on what
-    shares the launch."""
-    target = max(1, -(-2 * _sm_count(device.index or 0) // cells))
-    per = -(-units // min(target, units))
-    per = -(-per // quantum) * quantum
-    return per, -(-units // per)
+# K2's geometry (csrc/qkv_rope.cu): k rows per stage (the split quantum),
+# rows a CTA holds, the most splits, and the CTAs per SM a call aims for.
+_QKV_K_TILE = 64
+_QKV_ROWS = 64
+_QKV_MAX_SPLITS = 32
+_QKV_CTAS_PER_SM = 3
+
+
+def _qkv_geometry(d_model: int, heads: int, rows: int, sm_count: int):
+    """K2's split of the k dimension: (k rows per split, splits, row
+    blocks). A CTA owns one head's columns, up to `_QKV_ROWS` rows and
+    one split; the splits give the call about `_QKV_CTAS_PER_SM` CTAs an
+    SM, each a whole number of k tiles (the last split takes the rest).
+    A function of the shapes and the SM count only, never of the data, so
+    a row's result does not depend on what shares the launch."""
+    mblocks = -(-rows // _QKV_ROWS)
+    tiles = -(-d_model // _QKV_K_TILE)
+    target = -(-_QKV_CTAS_PER_SM * sm_count // (heads * mblocks))
+    per = -(-tiles // max(1, min(tiles, _QKV_MAX_SPLITS, target)))
+    return per * _QKV_K_TILE, -(-tiles // per), mblocks
 
 
 # The decode kernels' geometry (csrc/decode_mma.cuh): keys per tile of the
@@ -582,6 +596,25 @@ def _tickets(cells: int, chunk: int, hd: int, dtype, device: torch.device):
             )
         t = torch.zeros(max(cells, 4096), dtype=torch.int32, device=device)
         _TICKETS[device.index or 0] = t
+    return t
+
+
+# K2's tickets, per device, apart from K1/K7's: int32 zeros that every call
+# leaves zero. Calls on one device share them, so they run on one stream at
+# a time.
+_QKV_TICKETS: dict[int, torch.Tensor] = {}
+
+
+def _qkv_tickets(cells: int, device: torch.device) -> torch.Tensor:
+    t = _QKV_TICKETS.get(device.index or 0)
+    if t is None or t.numel() < cells:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the QKV kernel's tickets must exist before CUDA graph "
+                "capture: call the kernel once at this shape first"
+            )
+        t = torch.zeros(max(cells, 1024), dtype=torch.int32, device=device)
+        _QKV_TICKETS[device.index or 0] = t
     return t
 
 
@@ -831,7 +864,7 @@ def qkv_rope_projection(
     if w_qkv.shape[0] != dm or dout % heads != 0:
         raise ValueError(f"w_qkv shape {tuple(w_qkv.shape)} does not fit x")
     hd = dout // heads
-    if hd % _vector_elems(w_qkv) != 0 or hd > 128:
+    if hd == 0 or hd % _vector_elems(w_qkv) != 0 or hd > 128:
         raise ValueError(
             f"head_dim {hd} must be a multiple of {_vector_elems(w_qkv)} "
             f"(one 16-byte load) and <= 128"
@@ -864,19 +897,27 @@ def qkv_rope_projection(
     q = torch.empty(bsz, num_heads, steps, hd, dtype=x.dtype, device=dev)
     k = torch.empty(bsz, kv_heads, steps, hd, dtype=x.dtype, device=dev)
     v = torch.empty_like(k)
-    k_per, ksplit = _split(dm, heads * -(-M // 16), dev, quantum=32)
-    partial = torch.empty(ksplit, M, dout, dtype=torch.float32, device=dev)
+    k_per, ksplit, mblocks = _qkv_geometry(
+        dm, heads, M, _sm_count(dev.index or 0))
+    partial = tickets = None
+    if ksplit > 1:
+        cells = heads * mblocks
+        partial = torch.empty(cells, ksplit, min(M, _QKV_ROWS), hd,
+                              dtype=torch.float32, device=dev)
+        tickets = _qkv_tickets(cells, dev)
     arm = "qkv_rope_int8" if int8 else "qkv_rope"
     fn = _kernel_fn(
         "qkv_rope", ("qkv_rope_i8_" if int8 else "qkv_rope_") + _suffix(x),
-        [_P] * 5 + [ctypes.c_float] + [_P] * 4 + [_I] * 8 + [_P],
+        [_P] * 5 + [ctypes.c_float] + [_P] * 5 + [_I] * 8 + [_P],
     )
     code = fn(
         x.data_ptr(), w_qkv.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if w_scale is None else w_scale.data_ptr(),
         index.data_ptr(), 0.0 if rope_theta is None else float(rope_theta),
-        partial.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if partial is None else partial.data_ptr(),
+        None if tickets is None else tickets.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
         M, dm, num_heads, kv_heads, steps, hd, ksplit, k_per,
         torch.cuda.current_stream(dev).cuda_stream,
     )
