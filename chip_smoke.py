@@ -86,12 +86,26 @@ the CUDA toolkit (`nvcc`). It:
    10 that must replay the same losses, 12 launches per step of each of
    K3-K6, then step time, images/s and a profiled window of 3 steps in
    which the profiler must see those 12 launches per step;
-10. prints the card's name and power limit, one JSON line with every
+10. trains an LM at TinyLlama-1.1B width (f32 masters, bf16 compute,
+    batch 2 x 2048 tokens from the port's `token_batches`): at 2 layers
+    the step-1 gradient of every parameter through K4-K6 against the
+    plain attention's, 20 steps through `fit` with a checkpoint at step
+    10 (the loss must fall) and a resume that must replay the losses; at
+    22 layers 3 warm-up and 10 timed steps (22 launches each of K4, K5
+    and K6 a step), then one step with `remat` (44 K4, 22 K5, 22 K6, the
+    same loss); step time, tokens/s, peak memory and the model-FLOP
+    share, with its formula; a profiled window of 3 steps in which the
+    profiler must see every K4, K5 and K6 launch; then an MoE model (4
+    layers, 8 experts on every second block, top-2) that must train for
+    5 steps; K4, K5 and K6 are also checked on the path's inputs (K/V
+    repeated from 4 kv heads) in phase 7;
+11. prints the card's name and power limit, one JSON line with every
     kernel's numbers, and as the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each profiled window (the decode kernels' launches, LM serving,
-generation, int8 serving, ViT serving, ViT training) runs in a child process of its own (`--window NAME`: the
+generation, int8 serving, ViT serving, ViT training, LM training) runs
+in a child process of its own (`--window NAME`: the
 script starts itself once per window and fails if a child fails); the
 profiler there must see every launch of the window's sentinel kernels
 that their wrappers counted, else the window fails. Its device-busy
@@ -1364,8 +1378,10 @@ def unfused_phase(ContinuousBatcher, DecoderLM, da, cfg, seed: int) -> dict:
 # detection tokens, 6 heads of 64.
 VIT_B, VIT_S, VIT_H, VIT_D = 32, 296, 6, 64
 # The backward's second timing shape, at LM-training width: causal,
-# (batch, seq, heads, head_dim), K/V repeated to all heads.
+# (batch, seq, heads, head_dim), K/V repeated to all heads from
+# TinyLlama's 4 kv heads (the LM training phase's shapes).
 LM_TRAIN_SHAPE = (2, 2048, 32, 64)
+LM_KV_HEADS = 4
 # Gradients of the training phase's check: per parameter tensor, max
 # |kernel path - plain path| <= GRAD_REL * max |plain path|. The two paths
 # run the same bf16 model and differ only inside attention (the forward
@@ -1558,7 +1574,10 @@ def _lm_forward(fa, rnd, check, b, s, h, d) -> dict:
     """K4 causal at LM-training width (bf16): checked against its plain
     version (through `check`), then timed beside it and SDPA's causal
     forward. The bound counts the products over the visible (query, key)
-    pairs. Returns the timing row."""
+    pairs. Between the two, K4, K5 and K6 are checked on the inputs the
+    LM training path gives them: K/V of TinyLlama's 4 kv heads repeated
+    to its 32 query heads (query head i reads kv head i // 8). Returns
+    the timing row."""
     qkv4 = [tuple(rnd(b, h, s, d) for _ in range(3)) for _ in range(ROTATE)]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out, lse = fa._flash_fwd_cuda(*qkv4[0], True, s)
@@ -1566,6 +1585,19 @@ def _lm_forward(fa, rnd, check, b, s, h, d) -> dict:
     check("flash_fwd", "lm_causal", torch.bfloat16, [out], [ro])
     check("flash_fwd", "lm_causal/lse", torch.bfloat16, [lse], [rl], rule=torch.float32)
     del out, lse, ro, rl
+    group = h // LM_KV_HEADS
+    q, g = rnd(b, h, s, d), rnd(b, h, s, d)
+    k, v = (rnd(b, LM_KV_HEADS, s, d).repeat_interleave(group, dim=1) for _ in range(2))
+    out, lse = fa._flash_fwd_cuda(q, k, v, True, s)
+    ro, rl = fa.flash_reference(q, k, v, causal=True)
+    check("flash_fwd", "lm_training", torch.bfloat16, [out], [ro])
+    check("flash_fwd", "lm_training/lse", torch.bfloat16, [lse], [rl], rule=torch.float32)
+    dq, dk, dv = fa._flash_bwd_cuda(q, k, v, ro, rl, g, None, True, s)
+    wq, wk, wv = fa.flash_backward_reference(q, k, v, ro, rl, g, causal=True)
+    check("flash_dq", "lm_training", torch.bfloat16, [dq], [wq])
+    check("flash_dkv", "lm_training", torch.bfloat16, [dk, dv], [wk, wv])
+    del q, k, v, g, out, lse, ro, rl, dq, dk, dv, wq, wk, wv
+    torch.cuda.empty_cache()
 
     def k4(i):
         fa._flash_fwd_cuda(*qkv4[i % ROTATE], True, s)
@@ -1841,6 +1873,54 @@ def window_vit_training(seed: int) -> dict:
     return summary
 
 
+def _lm_batches(cfg, seed: int):
+    """The LM training phase's data: the port's `token_batches` (batch 2,
+    2048 tokens) over a corpus of 16 windows of tokens drawn from
+    `seed`."""
+    from walkai_nos_tpu_torch.models import data as data_mod
+
+    b, s = LM_TRAIN_SHAPE[:2]
+    corpus = np.random.default_rng(seed + 3).integers(
+        0, cfg.vocab_size, 16 * b * s, dtype=np.int32)
+    return data_mod.token_batches(corpus, batch_size=b, seq_len=s, seed=seed)
+
+
+def window_lm_training(seed: int) -> dict:
+    """3 training steps at TinyLlama width (22 layers, f32 masters, bf16
+    compute, batch 2 x 2048 tokens) after 2 warm-up steps. Each step runs
+    K4 (forward), K5 and K6 once per layer: the wrappers' counts must say
+    so, and the profiler must see every one of those launches."""
+    from walkai_nos_tpu_torch.models import data as data_mod
+    from walkai_nos_tpu_torch.models import lm as lm_mod
+    from walkai_nos_tpu_torch.models import trainer as trainer_mod
+    from walkai_nos_tpu_torch.ops import attention as fa
+
+    cfg = _tinyllama_cfg(lm_mod.LMConfig)
+    state = lm_mod.init_lm_state(cfg, seed=seed)
+    step_fn = lm_mod.make_lm_train_step(cfg)
+    batches = data_mod.prefetch_to_device(_lm_batches(cfg, seed))
+
+    def fit(n):
+        return trainer_mod.fit(state, step_fn, batches, num_steps=n, log_every=0)
+
+    fit(2)
+    fa.reset_launch_counts()
+    steps = 3
+    prof, wall, _ = _profiled(lambda: fit(steps))
+    launches = dict(fa.LAUNCHES)
+    want = {"packed_attention": 0, "flash_fwd": cfg.num_layers * steps,
+            "flash_dq": cfg.num_layers * steps, "flash_dkv": cfg.num_layers * steps}
+    if launches != want:
+        _fail(f"LM training window: {launches} in {steps} steps, not {want}")
+    summary = _profile_summary(prof, wall, "lm_training_profile.txt", launches, {
+        "flash_fwd": "flash_fwd_wgmma",
+        "flash_dq": "flash_dq_wgmma",
+        "flash_dkv": "flash_dkv_wgmma",
+    })
+    summary["steps"] = steps
+    return summary
+
+
 WINDOWS = {
     "decode_launches": window_decode_launches,
     "lm_serving": window_lm_serving,
@@ -1848,6 +1928,7 @@ WINDOWS = {
     "int8_serving": lambda seed: window_lm_serving(seed, "int8"),
     "vit_serving": window_vit_serving,
     "vit_training": window_vit_training,
+    "lm_training": window_lm_training,
 }
 
 
@@ -1944,6 +2025,227 @@ def vit_training_phase(vit_mod, train_mod, trainer_mod, data_mod, fa, seed: int)
         "step_ms": wall / timed.steps_run * 1e3,
         "images_per_s": b * timed.steps_run / wall,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
+@contextlib.contextmanager
+def _plain_lm_attention(lm_mod, fa):
+    """Runs the LM's attention through the plain versions of K4
+    (`flash_reference`) and K5 + K6 (`flash_backward_reference`) inside
+    the blocks: the reference the checks hold the kernel path against.
+    Like the kernels' autograd function it keeps only (out, lse) for the
+    backward, so a 2048-token layer holds no [s, s] tensor between the
+    passes."""
+
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            out, lse = fa.flash_reference(q, k, v, causal=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            return fa.flash_backward_reference(*ctx.saved_tensors, g, causal=True)
+
+    kernel_path = lm_mod.flash_attention
+    lm_mod.flash_attention = lambda q, k, v, causal: PlainFlash.apply(q, k, v)
+    try:
+        yield
+    finally:
+        lm_mod.flash_attention = kernel_path
+
+
+def _lm_model_flops(cfg, model, b: int, s: int) -> tuple[float, str]:
+    """Model FLOPs of one training step and the formula: 6 x N x tokens
+    for the parameters in products (all but the embedding table), plus
+    the causal attention's products, forward and backward (3 x the
+    forward's 4 x b x h x s(s+1)/2 x head_dim, per layer)."""
+    n_params = sum(p.numel() for name, p in model.named_parameters()
+                   if name != "embed.embedding")
+    attn = 3 * 4 * b * cfg.num_heads * (s * (s + 1) // 2) * cfg.head_dim * cfg.num_layers
+    flops = 6 * n_params * b * s + attn
+    formula = (f"(6 x N {n_params} x tokens {b * s} + causal attention "
+               f"3 x 4 x b x h x s(s+1)/2 x d x layers = {attn:.4g}) / step time / "
+               f"{BF16_FLOPS:.4g} FLOP/s (dense bf16 peak)")
+    return float(flops), formula
+
+
+def lm_training_phase(lm_mod, trainer_mod, data_mod, fa, seed: int) -> dict:
+    """LM training at TinyLlama-1.1B width (f32 masters, bf16 compute,
+    batch 2 x 2048 tokens from `token_batches`):
+    - at 2 layers, the step-1 gradient of every parameter through K4-K6
+      against the plain attention's; then 20 steps through `fit` on one
+      repeated batch with a checkpoint at step 10 (the loss must fall),
+      and a resume from step 10 that must replay the losses;
+    - at 22 layers, 3 warm-up and 10 timed steps through `fit` (22 K4,
+      K5 and K6 launches a step), then one step with `remat` on a fresh
+      state from the same seed (44 K4, 22 K5, 22 K6; the loss of the
+      warm-up's first step);
+    - an MoE model (4 layers, 8 experts on every second block, top-2,
+      capacity 1.25): 5 steps on a repeated batch, the loss falling, 4
+      launches of each kernel a step."""
+    import dataclasses
+
+    cfg = _tinyllama_cfg(lm_mod.LMConfig)
+    b, s = LM_TRAIN_SHAPE[:2]
+    batch = next(_lm_batches(cfg, seed))
+    tokens = torch.from_numpy(batch).cuda()
+
+    # Gradients at 2 layers: kernel path against plain path.
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    state = lm_mod.init_lm_state(cfg2, seed=seed)
+    model = state.params
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss = lm_mod.lm_loss(model(tokens), tokens)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+    fa.reset_launch_counts()
+    loss_k, g_kernel = grads()
+    grad_launches = dict(fa.LAUNCHES)
+    with _plain_lm_attention(lm_mod, fa):
+        loss_p, g_plain = grads()
+    model.zero_grad(set_to_none=True)
+    if any(grad_launches[k] != 2 for k in ("flash_fwd", "flash_dq", "flash_dkv")):
+        _fail(f"LM training: the 2-layer gradient launched {grad_launches}")
+    worst, worst_name = 0.0, ""
+    for name, gp in g_plain.items():
+        gk = g_kernel[name]
+        if not torch.isfinite(gk).all():
+            _fail(f"LM training: non-finite gradient of {name}")
+        ratio = float((gk - gp).abs().max()) / (GRAD_REL * float(gp.abs().max()) + 1e-12)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    if not worst <= 1.0:
+        _fail(f"LM training: gradient of {worst_name} is {worst:.3g}x its tolerance")
+    del g_kernel, g_plain
+
+    # Fit and resume at 2 layers.
+    step_fn = lm_mod.make_lm_train_step(cfg2)
+    work = os.path.join("chip_smoke_work", "lm_ckpt")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        first = trainer_mod.fit(
+            state, step_fn, data_mod.prefetch_to_device(itertools.repeat(batch, 20)),
+            num_steps=20, checkpoint_dir=work, checkpoint_every=10, log_every=1,
+        )
+        losses = first.losses
+        if first.steps_run != 20 or len(losses) != 20 or not np.all(np.isfinite(losses)):
+            _fail(f"LM training: {first.steps_run} steps, losses {losses}")
+        if not losses[-1] < losses[0]:
+            _fail(f"LM training: the loss did not fall on a repeated batch: {losses}")
+        shutil.rmtree(os.path.join(work, "20"))
+        template = lm_mod.init_lm_state(cfg2, seed=seed + 1)
+        second = trainer_mod.fit(
+            template, step_fn, data_mod.prefetch_to_device(itertools.repeat(batch, 10)),
+            num_steps=10, checkpoint_dir=work, checkpoint_every=10, log_every=1,
+        )
+        if second.resumed_from != 10 or second.state.step != 20:
+            _fail(f"LM training: resumed from {second.resumed_from} to {second.state.step}")
+        replay = np.asarray(second.losses)
+        rel = float(np.max(np.abs(replay - losses[10:]) / np.abs(losses[10:])))
+        if not rel <= 1e-3:
+            _fail(f"LM training: the resumed losses differ by {rel:.3g} relative")
+        bitwise = bool(np.array_equal(replay, np.asarray(losses[10:])))
+        del template, second
+    finally:
+        shutil.rmtree("chip_smoke_work", ignore_errors=True)
+    del state, model, first
+    torch.cuda.empty_cache()
+
+    # Timed steps at 22 layers.
+    torch.cuda.reset_peak_memory_stats()
+    state = lm_mod.init_lm_state(cfg, seed=seed)
+    flops, formula = _lm_model_flops(cfg, state.params, b, s)
+    step_fn = lm_mod.make_lm_train_step(cfg)
+    batches = data_mod.prefetch_to_device(_lm_batches(cfg, seed))
+    warm = trainer_mod.fit(state, step_fn, batches, num_steps=3, log_every=1)
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    timed = trainer_mod.fit(state, step_fn, batches, num_steps=10, log_every=0)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(fa.LAUNCHES)
+    want = {"packed_attention": 0, "flash_fwd": 220, "flash_dq": 220, "flash_dkv": 220}
+    if timed.steps_run != 10 or launches != want:
+        _fail(f"LM training: {timed.steps_run} timed steps launched {launches}, not {want}")
+    if not np.all(np.isfinite(warm.losses + timed.losses)):
+        _fail(f"LM training: losses {warm.losses + timed.losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_s = wall / timed.steps_run
+    warmup_losses = warm.losses
+    step1_loss = warmup_losses[0]
+    del state, warm, timed, batches
+    torch.cuda.empty_cache()
+
+    # One step with remat, from the same initial weights and first batch;
+    # then 3 more, timed.
+    torch.cuda.reset_peak_memory_stats()
+    rcfg = dataclasses.replace(cfg, remat=True)
+    rstate = lm_mod.init_lm_state(rcfg, seed=seed)
+    rstep = lm_mod.make_lm_train_step(rcfg)
+    rbatches = data_mod.prefetch_to_device(_lm_batches(cfg, seed))
+    fa.reset_launch_counts()
+    _, rloss = rstep(rstate, next(rbatches))
+    rloss = float(rloss)
+    remat_launches = dict(fa.LAUNCHES)
+    want = {"packed_attention": 0, "flash_fwd": 44, "flash_dq": 22, "flash_dkv": 22}
+    if remat_launches != want:
+        _fail(f"LM training: the remat step launched {remat_launches}, not {want}")
+    # Equal to one bf16 rounding (2**-8 relative) of the step without remat.
+    if not abs(rloss - step1_loss) <= 2 ** -8 * abs(step1_loss):
+        _fail(f"LM training: remat loss {rloss} against {step1_loss}")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    trainer_mod.fit(rstate, rstep, rbatches, num_steps=3, log_every=0)
+    torch.cuda.synchronize()
+    remat_s = (time.monotonic() - t0) / 3
+    remat_peak = torch.cuda.max_memory_allocated() / 1e9
+    del rstate, rbatches
+    torch.cuda.empty_cache()
+
+    # MoE: 4 layers, experts on blocks 2 and 4.
+    mcfg = dataclasses.replace(cfg, num_layers=4, num_experts=8, moe_every=2,
+                               expert_top_k=2, capacity_factor=1.25)
+    mstate = lm_mod.init_lm_state(mcfg, seed=seed)
+    fa.reset_launch_counts()
+    moe = trainer_mod.fit(
+        mstate, lm_mod.make_lm_train_step(mcfg),
+        data_mod.prefetch_to_device(itertools.repeat(batch, 5)), num_steps=5, log_every=1,
+    )
+    torch.cuda.synchronize()
+    moe_launches = dict(fa.LAUNCHES)
+    want = {"packed_attention": 0, "flash_fwd": 20, "flash_dq": 20, "flash_dkv": 20}
+    if moe_launches != want or not np.all(np.isfinite(moe.losses)) or not (
+            moe.losses[-1] < moe.losses[0]):
+        _fail(f"LM training, MoE: launches {moe_launches}, losses {moe.losses}")
+    moe_losses = moe.losses
+    del mstate, moe
+    torch.cuda.empty_cache()
+    return {
+        "model": "TinyLlama-1.1B widths (22 layers), f32 masters, bf16 compute",
+        "batch": b, "seq": s,
+        "step1_loss_kernel_2_layers": loss_k, "step1_loss_plain_2_layers": loss_p,
+        "grad_worst_over_tol": worst, "grad_worst_param": worst_name,
+        "grad_tol": f"{GRAD_REL} * max|plain grad| per parameter tensor (2 layers)",
+        "fit_losses_2_layers": losses, "resumed_from": 10,
+        "resume_max_rel_diff": rel, "resume_bitwise": bitwise,
+        "warmup_losses": warmup_losses, "launches_10_steps": launches,
+        "step_ms": step_s * 1e3, "tokens_per_s": b * s / step_s,
+        "peak_mem_gb": peak,
+        "model_flops_per_step": flops,
+        "model_flop_share": flops / step_s / BF16_FLOPS,
+        "model_flop_share_formula": formula,
+        "remat_step_ms": remat_s * 1e3, "remat_peak_mem_gb": remat_peak,
+        "remat_loss": rloss, "remat_loss_bitwise": rloss == step1_loss,
+        "remat_launches": remat_launches,
+        "moe": {"layers": 4, "experts": 8, "moe_every": 2, "top_k": 2,
+                "capacity_factor": 1.25, "losses": moe_losses,
+                "launches_5_steps": moe_launches},
     }
 
 
@@ -2085,6 +2387,19 @@ def main() -> int:
     vit_train["profile_3_steps"] = run_window("vit_training", args.seed)
     print(json.dumps({"vit_training": vit_train}), flush=True)
     phase_end_s['vit_training'] = time.monotonic() - start
+    torch.cuda.empty_cache()
+    lm_train = lm_training_phase(lm_mod, trainer_mod, data_mod, fa, args.seed)
+    lm_train["profile_3_steps"] = window = run_window("lm_training", args.seed)
+    lm_train["kernel_device_ms_per_step"] = {
+        name: seen["device_ms"] / window["steps"]
+        for name, seen in window["sentinel_launches"].items()
+    }
+    print(json.dumps({"lm_training": lm_train}), flush=True)
+    print(f"LM training on {smi}: {lm_train['step_ms']:.2f} ms a step, "
+          f"{lm_train['tokens_per_s']:.1f} tokens/s, peak {lm_train['peak_mem_gb']:.2f} GB, "
+          f"model-FLOP share {lm_train['model_flop_share']:.4f} = "
+          f"{lm_train['model_flop_share_formula']}", flush=True)
+    phase_end_s['lm_training'] = time.monotonic() - start
 
     src = "walkai_nos_tpu_torch/csrc/"
     replaces = {
@@ -2150,6 +2465,24 @@ def main() -> int:
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     })
+    # K4, K5 and K6 on the LM training path: checked on its inputs (K/V
+    # repeated from 4 kv heads), timed at its shape, launched by its 10
+    # timed steps.
+    for name, (source, replaces) in {
+        "flash_fwd": ("flash_attention.cu", "walkai_nos_tpu/ops/attention.py:648"),
+        "flash_dq": ("flash_attention_bwd.cu", "walkai_nos_tpu/ops/attention.py:353"),
+        "flash_dkv": ("flash_attention_bwd.cu", "walkai_nos_tpu/ops/attention.py:372"),
+    }.items():
+        t = next(r for r in vrows if r["kernel"] == name and r["case"] == "lm_causal")
+        err = next(c["max_abs_err"] for c in vchecks
+                   if c["kernel"] == name and c["case"] == "lm_training")
+        kernels.append({
+            "name": name + "_lm_training", "route": "cuda", "source": f"{src}{source}",
+            "replaces": replaces, "launches": lm_train["launches_10_steps"][name],
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({
@@ -2161,7 +2494,7 @@ def main() -> int:
             "dense_serving": dense_serve, "exactness_f32": exact,
             "unfused": unfused, "int8_serving": int8_serve,
             "sim_exactness": sim_exact, "vit_serving": vit_serve,
-            "vit_training": vit_train, "kernels": kernels,
+            "vit_training": vit_train, "lm_training": lm_train, "kernels": kernels,
             "phase_end_s": phase_end_s,
         }, f, indent=1)
     print(json.dumps({"phase_end_s": phase_end_s}), flush=True)

@@ -699,6 +699,66 @@ def test_vit_kernel_path_matches_plain_path(cuda):
         _close_rel(g_k[name], g.to(cuda), torch.float32, name)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_training_attention_matches_plain(cuda, dtype):
+    """K4, then K5 + K6, causal at TinyLlama's training shape (32 query
+    heads over K/V repeated from 4 kv heads, head_dim 64, 2048 tokens)
+    against the plain versions, and the gradients summed back onto the
+    kv heads as autograd of `repeat_interleave` sums them."""
+    b, h, kvh, s, d = 1, 32, 4, 2048, 64
+    gen = torch.Generator(device=cuda).manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+
+    q, g = rnd(b, h, s, d), rnd(b, h, s, d)
+    k, v = (rnd(b, kvh, s, d).repeat_interleave(h // kvh, dim=1) for _ in range(2))
+    out, lse = fa._flash_fwd_cuda(q, k, v, True, s)
+    want, want_lse = fa.flash_reference(q, k, v, causal=True)
+    _close_rel(out, want, dtype, "out")
+    _close_rel(lse, want_lse, torch.float32, "lse")
+    got = fa._flash_bwd_cuda(q, k, v, want, want_lse, g, None, True, s)
+    ref = fa.flash_backward_reference(q, k, v, want, want_lse, g, causal=True)
+    for a, w, n in zip(got, ref, ("dq", "dk", "dv")):
+        _close_rel(a, w, dtype, n)
+    for a, w, n in zip(got[1:], ref[1:], ("dk", "dv")):
+        def per_kv_head(t):
+            return t.float().unflatten(1, (kvh, h // kvh)).sum(2)
+        _close_rel(per_kv_head(a), per_kv_head(w), dtype, n + " per kv head")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_lm_training_path_launches_and_matches_plain(cuda, remat):
+    """The LM's no-cache forward and backward on the card launch K4 once
+    per layer (twice with remat: the recompute), K5 and K6 once per
+    layer, and give the loss and every parameter's gradient of the same
+    training build on the CPU (plain attention), in f32."""
+    cfg = tlm.LMConfig(
+        vocab_size=96, hidden_dim=128, num_layers=3, num_heads=4, num_kv_heads=2,
+        mlp_dim=192, max_seq_len=160, dtype="float32", norm="rmsnorm", mlp="swiglu",
+        rope=True, use_bias=False, head_bias=False, remat=remat,
+    )
+    tokens = torch.randint(0, 96, (2, 150), generator=torch.Generator().manual_seed(3))
+    plain = tlm.init_lm_state(cfg, seed=5, device="cpu").params
+    results = []
+    for dev, model in ((cuda, copy.deepcopy(plain).to(cuda)), (torch.device("cpu"), plain)):
+        fa.reset_launch_counts()
+        t = tokens.to(dev)
+        loss = tlm.lm_loss(model(t), t)
+        loss.backward()
+        results.append((loss, {n: p.grad for n, p in model.named_parameters()},
+                        dict(fa.LAUNCHES)))
+    (loss_k, g_k, launches), (loss_p, g_p, _) = results
+    n = cfg.num_layers
+    assert launches == {"packed_attention": 0, "flash_fwd": n * (2 if remat else 1),
+                        "flash_dq": n, "flash_dkv": n}
+    _close_rel(loss_k, loss_p.to(cuda), torch.float32, "loss")
+    for name, g in g_p.items():
+        _close_rel(g_k[name], g.to(cuda), torch.float32, name)
+
+
 # -- K7: dense-cache decode attention ----------------------------------------
 
 

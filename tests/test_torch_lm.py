@@ -146,7 +146,6 @@ def test_config_fields_and_presets_match_jax():
         (dict(num_heads=8, num_kv_heads=3), ValueError),
         (dict(paged_decode=True, ragged_decode=True, paged_blocks=1), ValueError),
         (dict(kv_dtype="fp4"), ValueError),
-        (dict(num_experts=4), NotImplementedError),
         (dict(tp_devices=2), NotImplementedError),
         (dict(use_ring_attention=True), NotImplementedError),
     ],
@@ -157,6 +156,29 @@ def test_config_validation(kwargs, err):
     if err is ValueError:  # the JAX config refuses the same values
         with pytest.raises(ValueError):
             jlm.LMConfig(**kwargs)
+
+
+def test_moe_config_refuses_the_cache_forwards():
+    """Experts run in the no-cache forward only: capacity routing makes a
+    row's output depend on the batch, which the engines' invariant
+    forbids. The cache forwards and the entry points that bridge params
+    for them raise."""
+    fields = dict(FAMILIES["llama"], num_experts=4)
+    cfg = tlm.LMConfig(**fields)
+    model = tlm.DecoderLM(cfg, device="cpu")
+    tokens = torch.zeros(2, 3, dtype=torch.int64)
+    assert model(tokens).shape == (2, 3, 64)
+    paged = tlm.LMConfig(**fields, **PAGED)
+    for call in (
+        lambda: model(tokens, tlm.DenseCache.zeros(cfg, 2, "cpu")),
+        lambda: tlm.DecoderLM(paged, device="cpu")(
+            tokens, tlm.PagedCache.zeros(paged, "cpu"),
+            torch.tensor([[1, 2], [3, 4]]), torch.tensor([0, 5]),
+        ),
+        lambda: tlm.DecoderLM.from_params(cfg, model),
+    ):
+        with pytest.raises(NotImplementedError, match="MoE in the decode paths"):
+            call()
 
 
 @pytest.mark.parametrize("kv_dtype", ["model", "int8", "int8-sim"])

@@ -5,16 +5,20 @@ DecoderLM` or of `walkai_nos_tpu.models.vit.ViTDetector`, as nested dicts
 of numpy arrays (`jax.device_get(params)` gives one; the port itself
 never imports jax). Names map one to one: `blockN/...` becomes
 `blocks.N....`, every other scope keeps its flax name, and each leaf keeps
-its flax name (`kernel`, `bias`, `scale`, `embedding`, `pos_embed`, and
-the ViT's `patch_embed`, `det_tokens`, `norm`, `class_head`, `box_head`).
+its flax name (`kernel`, `bias`, `scale`, `embedding`, `pos_embed`, an
+MoE block's `moe/router/{kernel,bias}`, `moe/experts_up` and
+`moe/experts_down`, and the ViT's `patch_embed`, `det_tokens`, `norm`,
+`class_head`, `box_head`).
 
 Layout: the port KEEPS flax's Dense layout, kernel [in, out] — the
 layout the fused QKV kernel reads and `x @ kernel` computes with — so
 no leaf is transposed; the ViT's patch kernel keeps flax's `[p, p, 3,
 hidden]` Conv layout. Each leaf is cast to the dtype the port's module
-holds it in (the LM: Dense kernels and biases in the compute dtype, as
-flax casts them at every call, norms, `pos_embed` and the LM head in f32;
-the ViT: every leaf an f32 master, as in JAX training). A quantized LM
+holds it in (the LM's serving build: Dense kernels and biases, the
+embedding and the experts in the compute dtype, as flax casts them at
+every call, norms, `pos_embed`, the router and the LM head in f32; the
+LM's training build and the ViT: every leaf an f32 master, as in JAX
+training, so f32 leaves stay f32). A quantized LM
 tree (`models/lm.quantize_lm_params`) keeps its int8 kernels int8 and its
 `scale` rows f32: an int8 parameter takes only an int8 leaf, never a
 float one cast down.

@@ -168,8 +168,10 @@ def make_generate_fn(
     """Build `generate(params, prompt, max_new_tokens, seed=0) -> tokens`
     (the JAX `make_generate_fn`, its validation errors included).
 
-    `params`: a `DecoderLM` built for `cfg`, or the JAX package's flax
-    param tree (bridged onto `device`; None means `cuda`). `prompt`:
+    `params`: a `DecoderLM` built for `cfg` (a trained master-weight
+    build is copied to the compute dtype at each call, as a flax tree is
+    bridged), or the JAX package's flax param tree (bridged onto
+    `device`; None means `cuda`). `prompt`:
     [batch, prompt_len] ints (array or tensor); the result is an int64
     tensor [batch, max_new_tokens] on the model's device (prompt not
     repeated). prompt_len + max_new_tokens must fit `cfg.max_seq_len`;

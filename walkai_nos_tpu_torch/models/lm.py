@@ -1,13 +1,29 @@
-"""Decoder-only language model: the decode paths of the serving engine
-and of one-shot generation, in PyTorch.
+"""Decoder-only language model: the full causal forward and its
+training step, and the decode paths of the serving engine and of one-shot
+generation, in PyTorch.
 
 Port of `walkai_nos_tpu/models/lm.py`. `LMConfig` keeps every field,
 default and validation of the JAX config, so configurations, capture
 fingerprints and replay keys carry over; the knobs the port does not run
-yet (experts, tensor parallelism, ring/ulysses attention) raise
-NotImplementedError at construction.
+yet (tensor parallelism, ring/ulysses attention) raise
+NotImplementedError at construction, and experts (`num_experts > 0`,
+`models/moe.py`) run only in the no-cache forward: the cache forwards
+refuse them (capacity routing makes a row's output depend on the batch).
 
-`DecoderLM` runs the decode forward over one of two KV caches:
+`DecoderLM(tokens)` with no cache is the JAX `model.apply(params,
+tokens)`: rotary (or learned positions) at 0 .. seq-1, K/V repeated to
+every query head, and `ops/attention.flash_attention(q, k, v,
+causal=True)` per layer (K4 forward, K5 + K6 backward on the card), each
+block under `torch.utils.checkpoint` when `cfg.remat` is set. Training
+uses the f32-master build (`param_dtype=torch.float32`, flax's
+`param_dtype`): every parameter is an f32 tensor that trains and is cast
+to the compute dtype at every call. The default (serving) build stores
+the projections and embedding in the compute dtype and trains nothing;
+`DecoderLM.from_params` turns a trained master build into one.
+`lm_loss`, `init_lm_state` and `make_lm_train_step` are the JAX
+functions on one device, through `models/train.py`.
+
+The decode forward runs over one of two KV caches:
 
 - a PAGED cache (`PagedCache`, the paged serving engine): each layer
   holds a shared pool of 128-row K/V blocks ([paged_blocks, kv_heads,
@@ -63,9 +79,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from walkai_nos_tpu_torch.device import resolve_device
 from walkai_nos_tpu_torch.models.convert import load_flax_params
+from walkai_nos_tpu_torch.models.data import to_device
+from walkai_nos_tpu_torch.models.moe import MoEMlp, aux_loss_from_intermediates
+from walkai_nos_tpu_torch.models.train import TrainState, make_optimizer
+from walkai_nos_tpu_torch.ops.attention import flash_attention
 from walkai_nos_tpu_torch.ops.decode_attention import (
     MAX_KERNEL_STEPS,
     PAGE_ROWS,
@@ -90,6 +111,9 @@ __all__ = [
     "QuantDense",
     "apply_rope",
     "draft_config",
+    "init_lm_state",
+    "lm_loss",
+    "make_lm_train_step",
     "quantize_kernel",
     "quantize_lm_params",
 ]
@@ -201,7 +225,6 @@ class LMConfig:
             raise ValueError(f"unknown dtype {self.dtype!r}")
         # Knobs of the JAX model that later slices of the port add.
         for knob, on, item in (
-            ("num_experts > 0", self.num_experts > 0, "MoE (moe.py)"),
             ("tp_devices > 1", self.tp_devices > 1, "parallelism"),
             ("use_ring_attention", self.use_ring_attention, "parallelism"),
             ("use_ulysses_attention", self.use_ulysses_attention,
@@ -300,28 +323,35 @@ def apply_rope(
     return rotate(x, cos, sin)
 
 
-def _param(shape, dtype, device, gen, std=None, fill=None):
+def _param(shape, dtype, device, gen, std=None, fill=None, train=False):
     if std is not None:
         t = torch.randn(shape, generator=gen, device=device) * std
     else:
         t = torch.full(shape, float(fill), device=device)
-    return nn.Parameter(t.to(dtype), requires_grad=False)
+    return nn.Parameter(t.to(dtype), requires_grad=train)
 
 
 class Dense(nn.Module):
-    """flax `nn.Dense`: kernel [in, out] and bias in `dtype`; the input
-    is cast to `dtype` and the bias added in `dtype`."""
+    """flax `nn.Dense`: kernel [in, out] and bias; the input, kernel and
+    bias are cast to `dtype` at every call and the bias added in `dtype`.
+    `param_dtype=None` (the serving build) stores them in `dtype`, so the
+    casts are no-ops and K2 reads the kernel as it lies; `torch.float32`
+    (the training build) stores f32 masters that train."""
 
-    def __init__(self, d_in, d_out, *, bias, dtype, device, gen):
+    def __init__(self, d_in, d_out, *, bias, dtype, device, gen,
+                 param_dtype=None):
         super().__init__()
-        self.kernel = _param((d_in, d_out), dtype, device, gen, std=0.02)
-        self.bias = (
-            _param((d_out,), dtype, device, gen, fill=0.0) if bias else None
-        )
+        self.dtype = dtype
+        store, train = param_dtype or dtype, param_dtype is not None
+        self.kernel = _param((d_in, d_out), store, device, gen, std=0.02,
+                             train=train)
+        self.bias = _param(
+            (d_out,), store, device, gen, fill=0.0, train=train
+        ) if bias else None
 
     def forward(self, x):
-        y = x.to(self.kernel.dtype) @ self.kernel
-        return y if self.bias is None else y + self.bias
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 def quantize_kernel(kernel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -379,14 +409,16 @@ class QuantDense(nn.Module):
 _QUANT_DENSE_NAMES = ("qkv", "out_proj", "gate", "fc1", "fc2")
 
 
-def _dense(cfg: LMConfig, d_in: int, d_out: int, *, device, gen):
+def _dense(cfg: LMConfig, d_in: int, d_out: int, *, device, gen,
+           param_dtype=None):
     """The decode-path projection factory: `Dense` at w_dtype="model",
-    `QuantDense` otherwise, so all five projections flip together."""
+    `QuantDense` otherwise, so all five projections flip together (the
+    training build, `param_dtype` set, takes w_dtype="model" only)."""
     kw = dict(bias=cfg.use_bias, dtype=cfg.compute_dtype, device=device,
               gen=gen)
     if cfg.w_quant:
         return QuantDense(d_in, d_out, sim=cfg.w_quant == "sim", **kw)
-    return Dense(d_in, d_out, **kw)
+    return Dense(d_in, d_out, param_dtype=param_dtype, **kw)
 
 
 def quantize_lm_params(params, cfg: LMConfig):
@@ -429,14 +461,15 @@ class Norm(nn.Module):
     """flax `LayerNorm` / `RMSNorm` with dtype=f32: f32 statistics
     (LayerNorm's variance as mean(x^2) - mean(x)^2), f32 output."""
 
-    def __init__(self, cfg: LMConfig, device):
+    def __init__(self, cfg: LMConfig, device, train=False):
         super().__init__()
         d = cfg.hidden_dim
         self.rms = cfg.norm == "rmsnorm"
         self.eps = cfg.layer_norm_eps
-        self.scale = _param((d,), torch.float32, device, None, fill=1.0)
+        self.scale = _param((d,), torch.float32, device, None, fill=1.0,
+                            train=train)
         self.bias = None if self.rms else _param(
-            (d,), torch.float32, device, None, fill=0.0
+            (d,), torch.float32, device, None, fill=0.0, train=train
         )
 
     def forward(self, x):
@@ -493,13 +526,33 @@ def _masked_cache_attention(q, k_all, v_all, idx):
 
 
 class CausalAttention(nn.Module):
-    def __init__(self, cfg: LMConfig, device, gen):
+    def __init__(self, cfg: LMConfig, device, gen, param_dtype=None):
         super().__init__()
         self.cfg = cfg
         d = cfg.hidden_dim
-        kw = dict(device=device, gen=gen)
+        kw = dict(device=device, gen=gen, param_dtype=param_dtype)
         self.qkv = _dense(cfg, d, d + 2 * cfg.kv_heads * cfg.head_dim, **kw)
         self.out_proj = _dense(cfg, d, d, **kw)
+
+    def sequence(self, x):
+        """The full causal forward (JAX `CausalAttention.__call__` with
+        decode=False): projection -> split -> rotary at 0 .. seq-1 -> K/V
+        repeated to every query head (query head i reads kv head i //
+        group, `jnp.repeat`'s order) -> `flash_attention(causal=True)` ->
+        out projection."""
+        c = self.cfg
+        b, s = x.shape[0], x.shape[1]
+        q, k, v = split_qkv(
+            self.qkv(x), torch.zeros((), dtype=torch.long, device=x.device),
+            num_heads=c.num_heads, kv_heads=c.kv_heads,
+            rope_theta=c.rope_theta if c.rope else None,
+        )
+        if c.kv_heads != c.num_heads:
+            group = c.num_heads // c.kv_heads
+            k = k.repeat_interleave(group, dim=1)
+            v = v.repeat_interleave(group, dim=1)
+        o = flash_attention(q, k, v, causal=True)
+        return self.out_proj(o.transpose(1, 2).reshape(b, s, c.hidden_dim))
 
     def forward(self, x, kv, table, index):
         """kv: the layer's (k, v, k_scales, v_scales) from the cache's
@@ -585,26 +638,53 @@ class CausalAttention(nn.Module):
 
 
 class DecoderBlock(nn.Module):
-    def __init__(self, cfg: LMConfig, device, gen):
+    """Attention and an MLP, each behind a pre-norm and a residual. With
+    `use_moe` the MLP is `MoEMlp` (the JAX block's `moe` scope), which
+    only the full forward runs."""
+
+    def __init__(self, cfg: LMConfig, device, gen, param_dtype=None,
+                 use_moe=False):
         super().__init__()
         self.cfg = cfg
-        kw = dict(device=device, gen=gen)
-        self.norm1 = Norm(cfg, device)
-        self.attn = CausalAttention(cfg, device, gen)
-        self.norm2 = Norm(cfg, device)
-        if cfg.mlp == "swiglu":
-            self.gate = _dense(cfg, cfg.hidden_dim, cfg.mlp_width, **kw)
-        self.fc1 = _dense(cfg, cfg.hidden_dim, cfg.mlp_width, **kw)
-        self.fc2 = _dense(cfg, cfg.mlp_width, cfg.hidden_dim, **kw)
+        train = param_dtype is not None
+        kw = dict(device=device, gen=gen, param_dtype=param_dtype)
+        self.norm1 = Norm(cfg, device, train)
+        self.attn = CausalAttention(cfg, **kw)
+        self.norm2 = Norm(cfg, device, train)
+        self.moe = None
+        if use_moe:
+            self.moe = MoEMlp(
+                cfg.hidden_dim, cfg.mlp_width, cfg.num_experts,
+                top_k=cfg.expert_top_k, capacity_factor=cfg.capacity_factor,
+                dtype=cfg.compute_dtype, **kw,
+            )
+        else:
+            if cfg.mlp == "swiglu":
+                self.gate = _dense(cfg, cfg.hidden_dim, cfg.mlp_width, **kw)
+            self.fc1 = _dense(cfg, cfg.hidden_dim, cfg.mlp_width, **kw)
+            self.fc2 = _dense(cfg, cfg.mlp_width, cfg.hidden_dim, **kw)
 
-    def forward(self, x, kv, table, index):
-        x = x + self.attn(self.norm1(x), kv, table, index)
-        h = self.norm2(x)
+    def _mlp(self, h):
         if self.cfg.mlp == "swiglu":
             h = F.silu(self.gate(h)) * self.fc1(h)
         else:
             h = F.gelu(self.fc1(h), approximate="tanh")
-        return x + self.fc2(h)
+        return self.fc2(h)
+
+    def forward(self, x, kv, table, index):
+        x = x + self.attn(self.norm1(x), kv, table, index)
+        return x + self._mlp(self.norm2(x))
+
+    def sequence(self, x):
+        """The full causal forward: (x, the MoE layer's aux loss or
+        None). The MoE output is f32 (it keeps the f32 norm's dtype, as
+        in JAX), so from the first MoE block on the residual is f32."""
+        x = x + self.attn.sequence(self.norm1(x))
+        h = self.norm2(x)
+        if self.moe is None:
+            return x + self._mlp(h), None
+        y, aux = self.moe(h)
+        return x + y, aux
 
 
 @dataclass
@@ -707,65 +787,108 @@ class DenseCache:
 
 
 class Embed(nn.Module):
-    def __init__(self, cfg: LMConfig, device, gen):
+    """flax `nn.Embed(dtype=compute)`: the table cast to the compute dtype
+    (a no-op in the serving build), then the rows gathered."""
+
+    def __init__(self, cfg: LMConfig, device, gen, param_dtype=None):
         super().__init__()
+        self.dtype = cfg.compute_dtype
         self.embedding = _param(
-            (cfg.vocab_size, cfg.hidden_dim), cfg.compute_dtype, device,
-            gen, std=0.02,
+            (cfg.vocab_size, cfg.hidden_dim), param_dtype or self.dtype,
+            device, gen, std=0.02, train=param_dtype is not None,
         )
 
     def forward(self, tokens):
-        return self.embedding[tokens.long()]
+        return self.embedding.to(self.dtype)[tokens.long()]
+
+
+def _refuse_moe_decode(cfg: LMConfig) -> None:
+    if cfg.num_experts > 0:
+        raise NotImplementedError(
+            "num_experts > 0 runs only in the no-cache forward; the cache "
+            "forwards are not ported yet (ROADMAP: MoE in the decode paths)"
+        )
 
 
 class DecoderLM(nn.Module):
-    """The decoder LM's decode forward over a paged or a dense cache.
-    Weights are random from `seed` (normal, std 0.02; norms at 1, biases
-    at 0) until `models/convert.py` loads a JAX tree. `device=None` means
-    `cuda`."""
+    """The decoder LM: the full causal forward (no cache) and the decode
+    forward over a paged or a dense cache. Weights are random from `seed`
+    (normal, std 0.02; norms at 1, biases at 0) until `models/convert.py`
+    loads a JAX tree. `device=None` means `cuda`.
 
-    def __init__(self, cfg: LMConfig, *, device=None, seed: int = 0):
+    `param_dtype=None` is the serving build: projections and embedding
+    stored in the compute dtype, nothing trains. `param_dtype=
+    torch.float32` is the training build: every parameter an f32 master
+    that trains, cast to the compute dtype at every call (it takes
+    w_dtype="model" only). Both draw the same random values."""
+
+    def __init__(self, cfg: LMConfig, *, device=None, seed: int = 0,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
+        if param_dtype not in (None, torch.float32):
+            raise ValueError(
+                f"param_dtype must be None (serving) or torch.float32 "
+                f"(training); got {param_dtype}"
+            )
+        if param_dtype is not None and cfg.w_quant:
+            raise ValueError(
+                f"w_dtype={cfg.w_dtype!r} is a serving format; the training "
+                f"build holds full-precision masters (w_dtype='model')"
+            )
         self.cfg = cfg
+        self.param_dtype = param_dtype
+        train = param_dtype is not None
         dev = resolve_device(device)
         self.device = dev
         gen = torch.Generator(device=dev).manual_seed(seed)
-        self.embed = Embed(cfg, dev, gen)
+        self.embed = Embed(cfg, dev, gen, param_dtype)
         self.pos_embed = None
         if not cfg.rope:
             self.pos_embed = _param(
                 (1, cfg.max_seq_len, cfg.hidden_dim), torch.float32, dev,
-                gen, std=0.02,
+                gen, std=0.02, train=train,
             )
         self.blocks = nn.ModuleList(
-            DecoderBlock(cfg, dev, gen) for _ in range(cfg.num_layers)
+            DecoderBlock(
+                cfg, dev, gen, param_dtype,
+                use_moe=cfg.num_experts > 0 and (i + 1) % cfg.moe_every == 0,
+            )
+            for i in range(cfg.num_layers)
         )
-        self.norm = Norm(cfg, dev)
+        self.norm = Norm(cfg, dev, train)
         self.head = Dense(
             cfg.hidden_dim, cfg.vocab_size, bias=cfg.head_bias,
-            dtype=torch.float32, device=dev, gen=gen,
+            dtype=torch.float32, device=dev, gen=gen, param_dtype=param_dtype,
         )
 
     @classmethod
     def from_params(cls, cfg: LMConfig, params, device=None) -> "DecoderLM":
-        """`params` as the entry points take it: a `DecoderLM` built for
-        `cfg` up to its cache fields (used as it is, weights shared), or
-        the JAX package's flax param tree as nested numpy arrays (bridged
-        by `models/convert.py` onto `device`, None meaning `cuda`)."""
+        """`params` as the cache paths' entry points take it: a serving
+        `DecoderLM` built for `cfg` up to its cache fields and `remat`
+        (used as it is, weights shared), a training build of the same
+        (copied once into a new serving build: compute-dtype projections,
+        as K2 reads them), or the JAX package's flax param tree as nested
+        numpy arrays (bridged by `models/convert.py` onto `device`, None
+        meaning `cuda`)."""
+        _refuse_moe_decode(cfg)
         if isinstance(params, DecoderLM):
-            cache_fields = {
+            ignored = {
                 f: getattr(cfg, f) for f in (
                     "ragged_decode", "paged_decode", "paged_blocks",
-                    "cache_len",
+                    "cache_len", "remat",
                 )
             }
-            if dataclasses.replace(params.cfg, **cache_fields) != cfg:
+            if dataclasses.replace(params.cfg, **ignored) != cfg:
                 raise ValueError("the DecoderLM was built for another config")
             if device is not None and resolve_device(device) != params.device:
                 raise ValueError(
                     f"the DecoderLM lives on {params.device}, not {device}"
                 )
-            return params
+            if params.param_dtype is None:
+                return params
+            serving = cls(cfg, device=params.device)
+            serving.load_state_dict(params.state_dict())
+            return serving
         if not isinstance(params, Mapping):
             raise TypeError(
                 "params must be a flax param tree (nested numpy arrays) "
@@ -773,8 +896,14 @@ class DecoderLM(nn.Module):
             )
         return load_flax_params(cls(cfg, device=device), params)
 
-    def forward(self, tokens, cache, table=None, index=None):
+    def forward(self, tokens, cache=None, table=None, index=None, *,
+                intermediates: list | None = None):
         """tokens [batch, steps] -> f32 logits [batch, steps, vocab].
+
+        With no cache: the full causal forward over positions 0 ..
+        steps-1; each MoE layer appends its aux loss to `intermediates`
+        when a list is given (the JAX `intermediates` collection; see
+        `models/moe.aux_loss_from_intermediates`).
 
         With a `PagedCache`: the tokens sit at positions index ..
         index+steps-1 of each slot, the new K/V rows go into the pools
@@ -782,6 +911,11 @@ class DecoderLM(nn.Module):
         int) is the caller's to advance. With a `DenseCache` (table and
         index None): the tokens sit at cache.index onwards, and the
         forward writes the rows and advances cache.index by steps."""
+        if cache is None:
+            if table is not None or index is not None:
+                raise ValueError("table= and index= go with a PagedCache")
+            return self._sequence(tokens, intermediates)
+        _refuse_moe_decode(self.cfg)
         c = self.cfg
         steps = tokens.shape[1]
         dense = isinstance(cache, DenseCache)
@@ -808,3 +942,75 @@ class DecoderLM(nn.Module):
         if dense:
             cache.index += steps
         return self.head(self.norm(x))
+
+    def _sequence(self, tokens, intermediates):
+        c = self.cfg
+        steps = tokens.shape[1]
+        if steps > c.max_seq_len:
+            raise ValueError(
+                f"{steps} tokens exceed max_seq_len {c.max_seq_len}"
+            )
+        x = self.embed(tokens)
+        if self.pos_embed is not None:
+            x = x + self.pos_embed[0, :steps].to(x.dtype)
+        # nn.remat: each block's activations are recomputed in the
+        # backward (K4 runs again there), only its input is kept.
+        remat = c.remat and torch.is_grad_enabled()
+        for block in self.blocks:
+            if remat:
+                x, aux = checkpoint(block.sequence, x, use_reentrant=False)
+            else:
+                x, aux = block.sequence(x)
+            if aux is not None and intermediates is not None:
+                intermediates.append(aux)
+        return self.head(self.norm(x))
+
+
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy (shift by one), mean, in f32."""
+    vocab = logits.shape[-1]
+    return F.cross_entropy(
+        logits[:, :-1].reshape(-1, vocab).float(),
+        tokens[:, 1:].reshape(-1).long(),
+    )
+
+
+def init_lm_state(
+    cfg: LMConfig, *, seed: int = 0, lr: float = 3e-4, device=None,
+) -> TrainState:
+    """A fresh training build (f32 masters) from `seed` on `device`
+    (`cuda` unless the caller passes `device="cpu"`) and its AdamW
+    state."""
+    model = DecoderLM(cfg, device=device, seed=seed, param_dtype=torch.float32)
+    return TrainState(model, make_optimizer(lr).init(model), 0)
+
+
+def make_lm_train_step(cfg: LMConfig, *, lr: float = 3e-4, device=None):
+    """Returns `(state, tokens) -> (state, loss)`: one AdamW step
+    (`make_optimizer(lr)`) of `lm_loss`, plus 1e-2 x the summed MoE aux
+    loss when `cfg.num_experts > 0`, applied to `state` (an
+    `init_lm_state` of `cfg`) in place. `tokens` [batch, seq] int, a
+    tensor or numpy array; the loss is a 0-d tensor on the device, not
+    synced to the host."""
+    dev = resolve_device(device)
+    tx = make_optimizer(lr)
+
+    def loss_fn(model, tokens):
+        if cfg.num_experts > 0:
+            sown = []
+            logits = model(tokens, intermediates=sown)
+            return lm_loss(logits, tokens) + 1e-2 * aux_loss_from_intermediates(sown)
+        return lm_loss(model(tokens), tokens)
+
+    def step(state: TrainState, tokens) -> tuple[TrainState, torch.Tensor]:
+        if state.params.cfg != cfg:
+            raise ValueError("the state's model was built for another config")
+        tokens = to_device(tokens, dev)
+        state.opt_state.zero_grad(set_to_none=True)
+        loss = loss_fn(state.params, tokens)
+        loss.backward()
+        tx.apply(state.opt_state, state.step)
+        state.step += 1
+        return state, loss.detach()
+
+    return step

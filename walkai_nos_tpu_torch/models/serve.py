@@ -106,8 +106,10 @@ class ContinuousBatcher:
 
     `params` is the JAX package's flax param tree as nested numpy arrays
     (bridged by `models/convert.py`), or a `DecoderLM` built for `cfg`
-    (its weights are shared, not copied; `DecoderLM(cfg, seed=...)`
-    makes random ones). `device=None` means `cuda`; pass `device="cpu"`
+    (a serving build's weights are shared, not copied; a trained
+    master-weight build is copied once to the compute dtype;
+    `DecoderLM(cfg, seed=...)` makes random ones). `device=None` means
+    `cuda`; pass `device="cpu"`
     for the plain PyTorch path. Argument names are the JAX engine's."""
 
     def __init__(

@@ -1,4 +1,6 @@
-"""Train and infer steps for the detector, on one device.
+"""Train and infer steps for the detector, and the training state and
+optimizer every model's step shares (the LM's step is
+`models/lm.make_lm_train_step`), on one device.
 
 Port of `walkai_nos_tpu/models/train.py`. Training is the set-prediction
 loss in the YOLOS spirit with a fixed token<->target assignment (one
@@ -45,10 +47,11 @@ __all__ = [
 
 @dataclass
 class TrainState:
-    """The model (its parameters are the f32 masters), the optimizer
-    that holds the AdamW moments, and the number of updates applied."""
+    """The model (its parameters are the f32 masters: a `ViTDetector`,
+    or an LM from `models/lm.init_lm_state`), the optimizer that holds
+    the AdamW moments, and the number of updates applied."""
 
-    params: ViTDetector
+    params: torch.nn.Module
     opt_state: torch.optim.Optimizer
     step: int = 0
 
