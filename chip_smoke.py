@@ -122,6 +122,7 @@ import argparse
 import contextlib
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -129,6 +130,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -661,6 +663,74 @@ def _serving_prompts(cfg, seed: int) -> list:
     ]
 
 
+@contextlib.contextmanager
+def _first_token_logits(engine, sink: dict):
+    """Records into `sink`, per request id, the logits the paged engine's
+    prefill lane samples each request's first token from (on the card,
+    no sync)."""
+    from walkai_nos_tpu_torch.models import serve as serve_mod
+    from walkai_nos_tpu_torch.models import serve_lane
+
+    run_lane, sample_rows = serve_mod.run_lane, serve_lane.sample_rows
+
+    def recording_run_lane(model, st, lane):
+        # The finishing entries, in lane-row order: the rows of `fl`.
+        fin = [p.req.rid for p in engine._prefilling
+               if p.consumed == len(p.req.prompt)]
+
+        def sample(fl, *args):
+            for rid, row in zip(fin, fl):
+                sink[rid] = row.float().clone()
+            return sample_rows(fl, *args)
+
+        serve_lane.sample_rows = sample
+        try:
+            return run_lane(model, st, lane)
+        finally:
+            serve_lane.sample_rows = sample_rows
+
+    serve_mod.run_lane = recording_run_lane
+    try:
+        yield
+    finally:
+        serve_mod.run_lane = run_lane
+
+
+def _serve_timed(engine, prompts, new: int, da, first: dict | None = None) -> dict:
+    """Serves `prompts` (new tokens each) through a warmed engine with the
+    launch counts set to 0 just before and read just after; returns its
+    records, wall, launches and dispatches."""
+    torch.cuda.synchronize()
+    da.reset_launch_counts()
+    d0 = engine.obs.dispatches.value()
+    ctx = (_first_token_logits(engine, first) if first is not None
+           else contextlib.nullcontext())
+    with ctx:
+        t0 = time.monotonic()
+        rids = [engine.submit(p, max_new_tokens=new) for p in prompts]
+        records = {}
+        while engine.has_work:
+            engine.step()
+            records.update(engine.drain_done_records())
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    launches = dict(da.LAUNCHES)
+    dispatches = int(engine.obs.dispatches.value() - d0)
+    for r in rids:
+        if len(records[r]["tokens"]) != new:
+            _fail(f"request {r} returned {len(records[r]['tokens'])} tokens")
+    decode_steps = max(1, dispatches * engine.chunk_steps)
+    return {"rids": rids, "records": records, "wall_s": wall,
+            "launches": launches, "dispatches": dispatches,
+            "decode_steps": decode_steps,
+            "decode_tokens_per_s": new * len(rids) / wall,
+            "step_ms": wall / decode_steps * 1e3}
+
+
+def _public(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k not in ("rids", "records")}
+
+
 def serving_phase(ContinuousBatcher, LMConfig, DecoderLM, da, seed: int) -> dict:
     cfg = _tinyllama_cfg(LMConfig)
     torch.cuda.reset_peak_memory_stats()
@@ -672,22 +742,8 @@ def serving_phase(ContinuousBatcher, LMConfig, DecoderLM, da, seed: int) -> dict
     new = 32
     engine = ContinuousBatcher(cfg, model, **LM_ENGINE_KW)
     engine.warm()
-    torch.cuda.synchronize()
-    da.reset_launch_counts()
-    d0 = engine.obs.dispatches.value()
-    t0 = time.monotonic()
-    rids = [engine.submit(p, max_new_tokens=new) for p in prompts]
-    records = {}
-    while engine.has_work:
-        engine.step()
-        records.update(engine.drain_done_records())
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = dict(da.LAUNCHES)
-    dispatches = int(engine.obs.dispatches.value() - d0)
-    for r in rids:
-        if len(records[r]["tokens"]) != new:
-            _fail(f"request {r} returned {len(records[r]['tokens'])} tokens")
+    run = _serve_timed(engine, prompts, new, da)
+    rids, records, launches = run["rids"], run["records"], run["launches"]
     for name in ("paged_attention", "qkv_rope"):
         if launches[name] <= 0:
             _fail(f"kernel {name} was not launched on the serving path")
@@ -703,20 +759,15 @@ def serving_phase(ContinuousBatcher, LMConfig, DecoderLM, da, seed: int) -> dict
     if alone_tokens != records[rids[-1]]["tokens"]:
         _fail("the request alone gave other tokens than in the batch")
     ttft = sorted(records[r]["ttft_s"] for r in rids)
-    toks = new * len(rids)
     return {
         "model": "TinyLlama-1.1B widths, 22 layers, random bf16 weights",
         "weights_init_s": init_s,
         "requests": len(rids), "new_tokens_each": new,
         "prompt_tokens": int(sum(len(p) for p in prompts)),
-        "wall_s": wall,
-        "decode_tokens_per_s": toks / wall,
+        **_public(run),
         "ttft_p50_s": ttft[len(ttft) // 2],
-        "dispatches": dispatches,
-        "step_ms": wall / max(1, dispatches * engine.chunk_steps) * 1e3,
-        "launches": launches,
         "launches_per_decode_step": {
-            k: v / max(1, dispatches * engine.chunk_steps) for k, v in launches.items()
+            k: v / run["decode_steps"] for k, v in launches.items()
         },
         "prefix": {
             k: prefix[k]
@@ -748,22 +799,9 @@ def int8_serving_phase(ContinuousBatcher, DecoderLM, da, cfg, prompts,
     new = 32
     engine = ContinuousBatcher(cfg8, model, **LM_ENGINE_KW)
     engine.warm()
-    torch.cuda.synchronize()
-    da.reset_launch_counts()
-    d0 = engine.obs.dispatches.value()
-    t0 = time.monotonic()
-    rids = [engine.submit(p, max_new_tokens=new) for p in prompts]
-    records = {}
-    while engine.has_work:
-        engine.step()
-        records.update(engine.drain_done_records())
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = dict(da.LAUNCHES)
-    dispatches = int(engine.obs.dispatches.value() - d0)
+    run = _serve_timed(engine, prompts, new, da)
+    rids, records, launches = run["rids"], run["records"], run["launches"]
     tokens = [records[r]["tokens"] for r in rids]
-    if any(len(t) != new for t in tokens):
-        _fail("int8 serving: a request came back short")
     if min(min(t) for t in tokens) < 0 or max(max(t) for t in tokens) >= cfg.vocab_size:
         _fail("int8 serving: a token outside the vocabulary")
     for name in ("paged_attention_int8", "qkv_rope_int8"):
@@ -774,19 +812,15 @@ def int8_serving_phase(ContinuousBatcher, DecoderLM, da, cfg, prompts,
     stats = engine.quant_stats()
     if stats["kv_bytes_per_token"] != 11968:
         _fail(f"int8 serving: {stats['kv_bytes_per_token']} KV bytes per token")
-    decode_steps = max(1, dispatches * engine.chunk_steps)
     agree = sum(a == b for t, u in zip(tokens, bf16_tokens) for a, b in zip(t, u))
     ttft = sorted(records[r]["ttft_s"] for r in rids)
     out = {
         "model": "TinyLlama-1.1B widths, 22 layers, the bf16 phase's random "
                  "weights quantized to int8, int8 KV",
-        "requests": len(rids), "new_tokens_each": new, "wall_s": wall,
-        "decode_tokens_per_s": new * len(rids) / wall,
-        "ttft_p50_s": ttft[len(ttft) // 2], "dispatches": dispatches,
-        "step_ms": wall / decode_steps * 1e3,
-        "launches": launches,
+        "requests": len(rids), "new_tokens_each": new, **_public(run),
+        "ttft_p50_s": ttft[len(ttft) // 2],
         "launches_per_decode_step": {
-            k: v / decode_steps for k, v in launches.items()
+            k: v / run["decode_steps"] for k, v in launches.items()
         },
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "quant": stats,
@@ -1374,6 +1408,680 @@ def unfused_phase(ContinuousBatcher, DecoderLM, da, cfg, seed: int) -> dict:
     return {"requests": len(rids), "launches": launches}
 
 
+# -- HuggingFace import and MoE serving ---------------------------------------
+#
+# No `transformers` on the card's machine: the HF configs are namespaces with
+# the HF attribute names and published values, the state dicts HF-named
+# tensors drawn on the card from --seed. Each imported model's first-token
+# logits are held against a plain f32 forward written from HF's own model
+# definition over the HF-named tensors (`_llama_reference_logits`,
+# `_gpt2_reference_logits`), which uses nothing of the port.
+
+# Engine logits against the f32 reference: per prompt, max |engine - ref|
+# <= HF_REL * max |ref|. The engine runs bf16 (every projection and the
+# residual rounded to bf16, 2**-9 relative a rounding, through 22 or 12
+# layers) and the reference f32; a few percent of the largest logit.
+HF_REL = 5e-2
+
+
+def _tinyllama_hf_config():
+    """TinyLlama-1.1B's published config under `LlamaConfig`'s names."""
+    return types.SimpleNamespace(
+        vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+        num_hidden_layers=22, num_attention_heads=32, num_key_value_heads=4,
+        max_position_embeddings=2048, rms_norm_eps=1e-5, rope_theta=10000.0,
+        hidden_act="silu", rope_scaling=None, attention_bias=False,
+        mlp_bias=False, tie_word_embeddings=False,
+    )
+
+
+def _gpt2_small_hf_config():
+    """GPT-2 small's published config under `GPT2Config`'s names."""
+    return types.SimpleNamespace(
+        vocab_size=50257, n_embd=768, n_layer=12, n_head=12,
+        n_positions=1024, layer_norm_epsilon=1e-5,
+        activation_function="gelu_new", n_inner=None,
+        tie_word_embeddings=True,
+    )
+
+
+def _llama_shapes(c) -> dict:
+    hid, inter = c.hidden_size, c.intermediate_size
+    kv = c.num_key_value_heads * hid // c.num_attention_heads
+    shapes = {"model.embed_tokens.weight": (c.vocab_size, hid),
+              "model.norm.weight": (hid,),
+              "lm_head.weight": (c.vocab_size, hid)}
+    for i in range(c.num_hidden_layers):
+        p = f"model.layers.{i}."
+        shapes.update({
+            p + "input_layernorm.weight": (hid,),
+            p + "self_attn.q_proj.weight": (hid, hid),
+            p + "self_attn.k_proj.weight": (kv, hid),
+            p + "self_attn.v_proj.weight": (kv, hid),
+            p + "self_attn.o_proj.weight": (hid, hid),
+            p + "post_attention_layernorm.weight": (hid,),
+            p + "mlp.gate_proj.weight": (inter, hid),
+            p + "mlp.up_proj.weight": (inter, hid),
+            p + "mlp.down_proj.weight": (hid, inter),
+        })
+    return shapes
+
+
+def _gpt2_shapes(c) -> dict:
+    hid = c.n_embd
+    inner = c.n_inner or 4 * hid
+    shapes = {"transformer.wte.weight": (c.vocab_size, hid),
+              "transformer.wpe.weight": (c.n_positions, hid),
+              "transformer.ln_f.weight": (hid,), "transformer.ln_f.bias": (hid,)}
+    for i in range(c.n_layer):
+        p = f"transformer.h.{i}."
+        for name, shape in (
+            ("ln_1", (hid,)), ("attn.c_attn", (hid, 3 * hid)),
+            ("attn.c_proj", (hid, hid)), ("ln_2", (hid,)),
+            ("mlp.c_fc", (hid, inner)), ("mlp.c_proj", (inner, hid)),
+        ):  # Conv1D weights are [in, out]
+            shapes[p + name + ".weight"] = shape
+            shapes[p + name + ".bias"] = (shape[-1],)
+    return shapes
+
+
+def _hf_state_dict(shapes: dict, seed: int) -> dict:
+    """HF-named f32 tensors drawn on the card: normal(0, 0.02), plus 1 for
+    the norms' weights."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sd = {}
+    for name, shape in shapes.items():
+        t = torch.randn(shape, generator=gen, device="cuda") * 0.02
+        if len(shape) == 1 and name.endswith(".weight"):
+            t += 1.0
+        sd[name] = t
+    return sd
+
+
+def _causal_softmax(q, k):
+    """softmax(q k^T / sqrt(d)) with the causal mask, [heads, T, T]."""
+    t = q.shape[1]
+    s = (q @ k.transpose(1, 2)) / math.sqrt(q.shape[-1])
+    mask = torch.ones(t, t, device=q.device, dtype=torch.bool).tril()
+    return s.masked_fill(~mask, float("-inf")).softmax(-1)
+
+
+@torch.no_grad()
+def _llama_reference_logits(sd, c, tokens) -> torch.Tensor:
+    """Last-position f32 logits of HF's LlamaForCausalLM, written out
+    from its definition: RMSNorm, q/k/v/o `Linear` [out, in], rotary by
+    `rotate_half` over cos/sin of position x inv_freq, `repeat_kv`,
+    causal softmax attention, SwiGLU, untied head."""
+    t, hid = len(tokens), c.hidden_size
+    nh, nkv = c.num_attention_heads, c.num_key_value_heads
+    hd = hid // nh
+    dev = "cuda"
+    x = sd["model.embed_tokens.weight"][torch.as_tensor(tokens, device=dev).long()]
+    inv_freq = 1.0 / (c.rope_theta ** (
+        torch.arange(0, hd, 2, device=dev).float() / hd))
+    freqs = torch.outer(torch.arange(t, device=dev).float(), inv_freq)
+    emb = torch.cat([freqs, freqs], -1)
+    cos, sin = emb.cos(), emb.sin()
+
+    def rotate_half(u):
+        return torch.cat([-u[..., hd // 2:], u[..., :hd // 2]], -1)
+
+    def rms(u, w):
+        return w * (u * torch.rsqrt(u.pow(2).mean(-1, keepdim=True) + c.rms_norm_eps))
+
+    def heads(u, n):
+        return u.view(t, n, hd).transpose(0, 1)
+
+    for i in range(c.num_hidden_layers):
+        p = f"model.layers.{i}."
+        h = rms(x, sd[p + "input_layernorm.weight"])
+        q = heads(h @ sd[p + "self_attn.q_proj.weight"].T, nh)
+        k = heads(h @ sd[p + "self_attn.k_proj.weight"].T, nkv)
+        v = heads(h @ sd[p + "self_attn.v_proj.weight"].T, nkv)
+        q, k = q * cos + rotate_half(q) * sin, k * cos + rotate_half(k) * sin
+        k = k.repeat_interleave(nh // nkv, 0)  # repeat_kv
+        v = v.repeat_interleave(nh // nkv, 0)
+        o = (_causal_softmax(q, k) @ v).transpose(0, 1).reshape(t, hid)
+        x = x + o @ sd[p + "self_attn.o_proj.weight"].T
+        h = rms(x, sd[p + "post_attention_layernorm.weight"])
+        g = h @ sd[p + "mlp.gate_proj.weight"].T
+        up = h @ sd[p + "mlp.up_proj.weight"].T
+        x = x + (g * torch.sigmoid(g) * up) @ sd[p + "mlp.down_proj.weight"].T
+    return (rms(x[-1], sd["model.norm.weight"]) @ sd["lm_head.weight"].T).float()
+
+
+@torch.no_grad()
+def _gpt2_reference_logits(sd, c, tokens) -> torch.Tensor:
+    """Last-position f32 logits of HF's GPT2LMHeadModel, written out from
+    its definition: learned positions, pre-LN blocks, Conv1D x @ W + b,
+    fused c_attn split q | k | v, causal softmax attention, gelu_new
+    (tanh), the head tied to wte."""
+    t, hid, nh = len(tokens), c.n_embd, c.n_head
+    hd = hid // nh
+
+    def w(name):
+        return sd["transformer." + name]
+
+    def ln(u, name):
+        return torch.nn.functional.layer_norm(
+            u, (hid,), w(name + ".weight"), w(name + ".bias"), c.layer_norm_epsilon)
+
+    def conv1d(u, name):
+        return u @ w(name + ".weight") + w(name + ".bias")
+
+    def gelu_new(u):
+        return 0.5 * u * (1.0 + torch.tanh(
+            math.sqrt(2.0 / math.pi) * (u + 0.044715 * u.pow(3))))
+
+    ids = torch.as_tensor(tokens, device="cuda").long()
+    x = w("wte.weight")[ids] + w("wpe.weight")[:t]
+    for i in range(c.n_layer):
+        p = f"h.{i}."
+        qkv = conv1d(ln(x, p + "ln_1"), p + "attn.c_attn")
+        q, k, v = (u.view(t, nh, hd).transpose(0, 1) for u in qkv.split(hid, -1))
+        o = (_causal_softmax(q, k) @ v).transpose(0, 1).reshape(t, hid)
+        x = x + conv1d(o, p + "attn.c_proj")
+        x = x + conv1d(gelu_new(conv1d(ln(x, p + "ln_2"), p + "mlp.c_fc")),
+                       p + "mlp.c_proj")
+    return (ln(x[-1], "ln_f") @ w("wte.weight").T).float()
+
+
+def _hold_to_reference(first: dict, records: dict, rids, prompts, reference) -> dict:
+    """Each request's first-token logits from the engine against the
+    reference forward: within HF_REL x max |ref|, and the greedy first
+    token the reference's argmax wherever its top-2 margin exceeds that
+    tolerance."""
+    errs, margins, checked = [], [], 0
+    for rid, prompt in zip(rids, prompts):
+        ref = reference(prompt)
+        got = first[rid]
+        tol = HF_REL * float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        top2 = torch.topk(ref, 2).values
+        margin = float(top2[0] - top2[1])
+        errs.append(err / tol)
+        margins.append(margin)
+        if not err <= tol:
+            _fail(f"request {rid}: first-token logits {err} from the reference "
+                  f"(tolerance {tol})")
+        if margin > tol:
+            checked += 1
+            if records[rid]["tokens"][0] != int(ref.argmax()):
+                _fail(f"request {rid}: first token {records[rid]['tokens'][0]}, "
+                      f"the reference's {int(ref.argmax())} (margin {margin})")
+    return {"tol": f"{HF_REL:g} * max|ref| per prompt",
+            "max_err_over_tol": max(errs), "ref_top2_margins": margins,
+            "greedy_checked": checked}
+
+
+def _alone_equals_batched(ContinuousBatcher, cfg, model, kw, prompt, tokens, what):
+    alone = ContinuousBatcher(cfg, model, **kw)
+    rid = alone.submit(prompt, max_new_tokens=len(tokens))
+    if alone.run()[rid] != tokens:
+        _fail(f"{what}: the request alone gave other tokens than in the batch")
+
+
+def hf_llama_phase(hf_mod, ContinuousBatcher, LMConfig, da, seed: int) -> dict:
+    """A TinyLlama-1.1B HF checkpoint (random, HF names and shapes)
+    through `config_from_llama` + `params_from_llama` into the paged
+    engine at bf16: the serving prompts x 32 new tokens, K2 + K1 and not
+    K7, the config equal to `_tinyllama_cfg` but for its dtype, and the
+    first-token logits against `_llama_reference_logits`."""
+    import dataclasses
+
+    hcfg = _tinyllama_hf_config()
+    t0 = time.monotonic()
+    sd = _hf_state_dict(_llama_shapes(hcfg), seed + 20)
+    torch.cuda.synchronize()
+    draw_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    cfg = hf_mod.config_from_llama(hcfg)
+    if dataclasses.replace(cfg, dtype="bfloat16") != _tinyllama_cfg(LMConfig):
+        _fail(f"config_from_llama gave {cfg}")
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    params = hf_mod.params_from_llama(sd, cfg)
+    import_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    engine = ContinuousBatcher(cfg, params, **LM_ENGINE_KW)
+    del params
+    build_s = time.monotonic() - t0
+    engine.warm()
+    prompts = _serving_prompts(cfg, seed)
+    first = {}
+    run = _serve_timed(engine, prompts, 32, da, first)
+    launches = run["launches"]
+    if launches["paged_attention"] <= 0 or launches["qkv_rope"] <= 0 or launches["decode_attention"]:
+        _fail(f"HF llama serving launched {launches}")
+    held = _hold_to_reference(
+        first, run["records"], run["rids"], prompts,
+        lambda p: _llama_reference_logits(sd, hcfg, p))
+    del sd, engine
+    torch.cuda.empty_cache()
+    return {"model": "TinyLlama-1.1B config (HF names), random f32 checkpoint, "
+                     "served bf16", "draw_on_card_s": draw_s,
+            "config_and_params_from_llama_s": import_s,
+            "engine_build_s": build_s, **_public(run), "reference": held}
+
+
+def hf_gpt2_phase(hf_mod, ContinuousBatcher, da, seed: int) -> dict:
+    """A GPT-2-small HF checkpoint (random, Conv1D [in, out], tied head)
+    through `config_from_gpt2` + `params_from_gpt2` into the paged engine
+    (K2's bias arm without rotary, K1 at group 1) and the dense engine
+    (no kernel: an MHA model's dense decode takes the masked attention,
+    as JAX's `_decode_attention` routes it), bf16, cache_len 1024: the serving prompts x 32 new tokens, the
+    first-token logits against `_gpt2_reference_logits`, and one request
+    alone giving its batch tokens in both engines."""
+    import dataclasses
+
+    hcfg = _gpt2_small_hf_config()
+    sd = _hf_state_dict(_gpt2_shapes(hcfg), seed + 21)
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(hf_mod.config_from_gpt2(hcfg), dtype="bfloat16")
+    params = hf_mod.params_from_gpt2(sd, cfg)
+    import_s = time.monotonic() - t0
+    kw = dict(LM_ENGINE_KW, cache_len=1024)
+    engine = ContinuousBatcher(cfg, params, **kw)
+    model = engine.model
+    del params
+    engine.warm()
+    prompts = _serving_prompts(cfg, seed)
+    first = {}
+    paged = _serve_timed(engine, prompts, 32, da, first)
+    launches = paged["launches"]
+    if launches["paged_attention"] <= 0 or launches["qkv_rope"] <= 0 or launches["decode_attention"]:
+        _fail(f"GPT-2 paged serving launched {launches}")
+    held = _hold_to_reference(
+        first, paged["records"], paged["rids"], prompts,
+        lambda p: _gpt2_reference_logits(sd, hcfg, p))
+    tokens = [paged["records"][r]["tokens"] for r in paged["rids"]]
+    _alone_equals_batched(ContinuousBatcher, cfg, model, kw, prompts[-1],
+                          tokens[-1], "GPT-2 paged engine")
+    dkw = dict(slots=8, cache_len=1024, paged=False)
+    dense_engine = ContinuousBatcher(cfg, model, **dkw)
+    dense_engine.warm()
+    dense = _serve_timed(dense_engine, prompts, 32, da)
+    if any(dense["launches"].values()):  # MHA: the masked attention, as in JAX
+        _fail(f"GPT-2 dense serving launched {dense['launches']}")
+    dtokens = [dense["records"][r]["tokens"] for r in dense["rids"]]
+    _alone_equals_batched(ContinuousBatcher, cfg, model, dkw, prompts[4],
+                          dtokens[4], "GPT-2 dense engine")
+    same = sum(a == b for t, u in zip(tokens, dtokens) for a, b in zip(t, u))
+    del sd, engine, dense_engine, model
+    torch.cuda.empty_cache()
+    return {"model": "GPT-2 small config (HF names), random f32 checkpoint, "
+                     "tied head, served bf16", "config_and_params_from_gpt2_s": import_s,
+            "paged": _public(paged), "dense": _public(dense),
+            "reference": held, "alone_equals_batched": True,
+            "dense_tokens_equal_to_paged_share": same / (32 * len(prompts))}
+
+
+def gpt2_kernel_phase(da, seed: int) -> tuple[list, list]:
+    """K1 at group 1 and K2's bias arm without rotary, and the fused
+    composition, at GPT-2 small's serving shape (8 slots, steps 1, 12
+    heads of 64 over 12 kv heads, d_model 768, a 1024-row table with 512
+    resident rows a slot) against their plain versions in bf16 and f32;
+    bf16 timings beside their bounds, plain versions and library calls."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 22)
+    b, h, hd, dm, nlog, nb = 8, 12, 64, 768, 8, 65
+    kvh, dout, bf = h, 3 * dm, torch.bfloat16
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(bf)
+
+    table = (torch.randperm(nb - 1, generator=gen, device=dev) + 1)[
+        : b * nlog].reshape(b, nlog).to(torch.int32)
+    idx = torch.full((b,), 512, device=dev, dtype=torch.int32)
+    pools = [(rnd(nb, kvh, 128, hd), rnd(nb, kvh, 128, hd)) for _ in range(ROTATE)]
+    ws = [rnd(dm, dout, std=0.02) for _ in range(ROTATE)]
+    bias = rnd(dout, std=0.02)
+    q, x = rnd(b, h, 1, hd), rnd(b, 1, dm)
+    checks, rows = [], []
+    kw = dict(num_heads=h, rope_theta=None)
+    for dtype in (bf, torch.float32):
+        q_, x_, w_, b_ = (t.to(dtype) for t in (q, x, ws[0], bias))
+        kp, vp = (p.to(dtype) for p in pools[0])
+        for kname, got, want in (
+            ("paged_attention",
+             [da.paged_decode_attention(q_, kp, vp, table, idx)],
+             [da.paged_decode_attention_reference(q_, kp, vp, table, idx)]),
+            ("qkv_rope",
+             da.qkv_rope_projection(x_, w_, b_, idx, kv_heads=kvh, **kw),
+             da.qkv_rope_reference(x_, w_, b_, idx, kv_heads=kvh, **kw)),
+            ("fused",
+             da.fused_qkv_paged_attention(x_, w_, b_, kp, vp, table, idx, **kw),
+             da.fused_qkv_paged_reference(x_, w_, b_, kp, vp, table, idx, **kw)),
+        ):
+            e, ratio = _err(got, want, dtype)
+            checks.append({"kernel": kname, "case": "gpt2_small",
+                           "dtype": str(dtype).split(".")[-1],
+                           "max_abs_err": e, "err_over_tol": ratio,
+                           "tol": "%g * max|plain| per slot + %g" % TOL[dtype]})
+            if not ratio <= 1.0:
+                _fail(f"GPT-2 shape {kname} {dtype}: max err {e}, {ratio:.3g}x "
+                      f"its per-slot tolerance")
+    vis = float(idx.sum() + b)
+    kv_bytes = vis * kvh * hd * 2 * 2
+    k1_bytes = kv_bytes + 2 * b * h * hd * 2 + b * nlog * 4 + b * 4
+    k1_flops = vis * h * hd * 4
+    k2_bytes = b * dm * 2 + dm * dout * 2 + dout * 2 + b * dout * 2 + b * 4
+    k2_flops = 2.0 * b * dm * dout
+    gathered = [(da.gather_paged_cache(kp_, table), da.gather_paged_cache(vp_, table))
+                for kp_, vp_ in pools]
+    mask = (torch.arange(nlog * 128, device=dev)[None] <= idx.long()[:, None])[:, None, None]
+
+    def k1(i):
+        da.paged_decode_attention(q, *pools[i % ROTATE], table, idx)
+
+    def k1_plain(i):
+        da.paged_decode_attention_reference(q, *pools[i % ROTATE], table, idx)
+
+    def k1_lib(i):
+        torch.nn.functional.scaled_dot_product_attention(
+            q, *gathered[i % ROTATE], attn_mask=mask)
+
+    def k2(i):
+        da.qkv_rope_projection(x, ws[i % ROTATE], bias, idx, kv_heads=kvh, **kw)
+
+    def k2_plain(i):
+        da.qkv_rope_reference(x, ws[i % ROTATE], bias, idx, kv_heads=kvh, **kw)
+
+    def k2_lib(i):
+        da.split_qkv(torch.addmm(bias, x[:, 0], ws[i % ROTATE])[:, None], idx,
+                     num_heads=h, kv_heads=kvh)
+
+    def fused(i):
+        da.fused_qkv_paged_attention(x, ws[i % ROTATE], bias, *pools[i % ROTATE],
+                                     table, idx, **kw)
+
+    def fused_plain(i):
+        da.fused_qkv_paged_reference(x, ws[i % ROTATE], bias, *pools[i % ROTATE],
+                                     table, idx, **kw)
+
+    for name, fn, plain, lib, nbytes, flops in (
+        ("paged_attention", k1, k1_plain, k1_lib, k1_bytes, k1_flops),
+        ("qkv_rope", k2, k2_plain, k2_lib, k2_bytes, k2_flops),
+        ("fused", fused, fused_plain, None, k1_bytes + k2_bytes, k1_flops + k2_flops),
+    ):
+        bound_ms, bound_by = _bound(nbytes, flops)
+        rows.append({
+            "kernel": name, "case": "gpt2_small", "steps": 1,
+            "ms": _timed(fn, 20), "plain_ms": _timed(plain, 5),
+            "library_ms": None if lib is None else _timed(lib, 20),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "flops": flops,
+        })
+    return checks, rows
+
+
+MOE_FIELDS = dict(num_experts=8, moe_every=2, expert_top_k=2)
+# Capacity factors of the MoE phase: the default, and E / k x 2, under
+# which capacity = T and no token is ever dropped.
+MOE_CAPACITIES = (1.25, 4.0)
+
+
+def _moe_cfg(LMConfig, capacity_factor: float):
+    """TinyLlama-1.1B widths, 22 layers, with 8 gelu experts on every
+    second block (11 MoE layers), top-2."""
+    import dataclasses
+
+    return dataclasses.replace(_tinyllama_cfg(LMConfig), **MOE_FIELDS,
+                               capacity_factor=capacity_factor)
+
+
+def _record_moe_inputs(model, sink: list):
+    """Forward pre-hooks keeping each MoE call's (input, routed rows)."""
+    from walkai_nos_tpu_torch.models.moe import MoEMlp
+
+    handles = []
+    for m in model.modules():
+        if isinstance(m, MoEMlp):
+            handles.append(m.register_forward_pre_hook(
+                lambda mod, args: sink.append((mod, args[0], args[1] if len(args) > 1 else None))))
+    return handles
+
+
+def _drops(calls) -> dict:
+    """Tokens the capacity formula dropped in the recorded MoE calls: each
+    expert keeps min(its top-k assignments among the routed tokens,
+    capacity); decode calls (one token a row) and lane calls apart."""
+    out = {"decode_calls": 0, "decode_dropped": 0, "decode_assignments": 0,
+           "lane_calls": 0, "lane_dropped": 0, "lane_assignments": 0}
+    for mod, h, rows in calls:
+        b, s, d = h.shape
+        routed = (b if rows is None else rows) * s
+        gates = torch.softmax(mod.router(h.reshape(-1, d)[:routed]), -1)
+        chosen = torch.topk(gates, mod.top_k, dim=-1).indices.reshape(-1)
+        per_expert = torch.bincount(chosen, minlength=mod.num_experts)
+        kind = "decode" if s == 1 else "lane"
+        out[kind + "_calls"] += 1
+        out[kind + "_assignments"] += routed * mod.top_k
+        out[kind + "_dropped"] += int(torch.clamp(per_expert - mod.capacity(routed), min=0).sum())
+    return out
+
+
+def _moe_step_check(lm_mod, da, model, cfg, seed: int) -> dict:
+    """One paged decode step of the MoE model (8 slots after a 512-token
+    prefill) through K2 + K1 against the same step through the plain
+    route (`fused_qkv_paged_reference`) on the same card: per slot, max
+    |kernel - plain| within TOL[bf16] of that slot's max |plain|.
+
+    For the check every router's bias is set to 12 for expert 0 and 8 for
+    expert 1 (its products spread ~1): each token's top-2 is then experts
+    0 and 1 by margins far above bf16 noise, and who is dropped depends
+    on token order alone, the same on both routes. With the random
+    router's near-ties a bf16 difference in an attention output flips a
+    route and moves a logit by O(1) (the first card run: 8.3x TOL)."""
+    from walkai_nos_tpu_torch.models.moe import MoEMlp
+
+    routers = [m.router for m in model.modules() if isinstance(m, MoEMlp)]
+    saved = [r.bias.detach().clone() for r in routers]
+    with torch.no_grad():
+        for r in routers:
+            r.bias.zero_()
+            r.bias[0], r.bias[1] = 12.0, 8.0
+    try:
+        return _kernel_and_plain_step(lm_mod, da, model, cfg, seed)
+    finally:
+        with torch.no_grad():
+            for r, b in zip(routers, saved):
+                r.bias.copy_(b)
+
+
+def _kernel_and_plain_step(lm_mod, da, model, cfg, seed: int) -> dict:
+    import dataclasses
+
+    b, nlog = 8, 8
+    pcfg = dataclasses.replace(cfg, ragged_decode=True, paged_decode=True,
+                               paged_blocks=b * nlog + 1, cache_len=nlog * 128)
+    model = lm_mod.DecoderLM.from_params(pcfg, model)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    table = (torch.randperm(b * nlog, generator=gen, device="cuda") + 1).reshape(
+        b, nlog).to(torch.int32)
+    tokens = torch.randint(0, cfg.vocab_size, (b, 513), generator=gen, device="cuda")
+    cache = lm_mod.PagedCache.zeros(pcfg, "cuda")
+    index = torch.zeros(b, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        model(tokens[:, :512], cache, table, index)  # wide prefill: no kernel
+        before = lm_mod.PagedCache([k.clone() for k in cache.k], [v.clone() for v in cache.v])
+        da.reset_launch_counts()
+        got = model(tokens[:, 512:], cache, table, index + 512)
+        launches = dict(da.LAUNCHES)
+        kernel_route = lm_mod.fused_qkv_paged_attention
+        lm_mod.fused_qkv_paged_attention = da.fused_qkv_paged_reference
+        try:
+            want = model(tokens[:, 512:], before, table, index + 512)
+        finally:
+            lm_mod.fused_qkv_paged_attention = kernel_route
+    if launches["qkv_rope"] != cfg.num_layers or launches["paged_attention"] != cfg.num_layers:
+        _fail(f"MoE decode step launched {launches}")
+    err, ratio = _err(got, want, torch.bfloat16)
+    if not ratio <= 1.0:
+        _fail(f"MoE decode step: kernel route {err} from the plain route, "
+              f"{ratio:.3g}x its per-slot tolerance")
+    return {"max_abs_err": err, "err_over_tol": ratio,
+            "tol": "%g * max|plain| per slot + %g" % TOL[torch.bfloat16],
+            "launches": launches}
+
+
+def moe_serving_phase(ContinuousBatcher, LMConfig, DecoderLM, make_generate_fn,
+                      spec_mod, lm_mod, da, seed: int) -> dict:
+    """The MoE model at TinyLlama width, bf16, at capacity factors 1.25
+    and 4.0 (no drops): the paged engine (K2 + K1 once per layer per
+    decode step), the dense engine (K7 once per layer per decode step),
+    `make_generate_fn` (8 prompts of 128 tokens, 64 new) and speculative
+    decoding (its `draft_config` draft: dense, 1 layer; K7 once per
+    layer per verify round); at 4.0 a request alone gives its batch
+    tokens in both engines; at 1.25 the tokens the capacity formula
+    dropped per decode step, and one decode step through the kernels
+    against the plain route."""
+    prompts = _serving_prompts(_tinyllama_cfg(LMConfig), seed)
+    gen_prompts = _generate_prompts(_tinyllama_cfg(LMConfig), seed)[:, :128]
+    new = 32
+    out = {"model": "TinyLlama-1.1B widths, 22 layers, 8 gelu experts on every "
+                    "second block, top-2, random bf16 weights"}
+    for cf in MOE_CAPACITIES:
+        cfg = _moe_cfg(LMConfig, cf)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        model = DecoderLM(cfg, device="cuda", seed=seed + 30)
+        torch.cuda.synchronize()
+        res = {"weights_init_s": time.monotonic() - t0}
+        engine = ContinuousBatcher(cfg, model, **LM_ENGINE_KW)
+        engine.warm()
+        calls = []
+        handles = _record_moe_inputs(model, calls) if cf == 1.25 else []
+        paged = _serve_timed(engine, prompts, new, da)
+        for hnd in handles:
+            hnd.remove()
+        want = cfg.num_layers * paged["decode_steps"]
+        pl = paged["launches"]
+        if pl["qkv_rope"] != want or pl["paged_attention"] != want or pl["decode_attention"]:
+            _fail(f"MoE paged engine (cf {cf}): {pl} for {paged['decode_steps']} decode steps")
+        tokens = [paged["records"][r]["tokens"] for r in paged["rids"]]
+        dkw = dict(slots=8, cache_len=2048, paged=False)
+        dense_engine = ContinuousBatcher(cfg, model, **dkw)
+        dense_engine.warm()
+        dense = _serve_timed(dense_engine, prompts, new, da)
+        dl = dense["launches"]
+        if dl["decode_attention"] != cfg.num_layers * dense["decode_steps"] \
+                or dl["paged_attention"] or dl["qkv_rope"]:
+            _fail(f"MoE dense engine (cf {cf}): {dl} for {dense['decode_steps']} decode steps")
+        dtokens = [dense["records"][r]["tokens"] for r in dense["rids"]]
+        if cf == MOE_CAPACITIES[-1]:
+            _alone_equals_batched(ContinuousBatcher, cfg, model, LM_ENGINE_KW,
+                                  prompts[-1], tokens[-1], "MoE paged engine, no drops")
+            _alone_equals_batched(ContinuousBatcher, cfg, model, dkw,
+                                  prompts[4], dtokens[4], "MoE dense engine, no drops")
+            res["alone_equals_batched"] = True
+        del engine, dense_engine
+        g = make_generate_fn(cfg, tokens_per_dispatch=GENERATE_CHUNK)
+        g(model, gen_prompts[:, :16], 2)
+        torch.cuda.synchronize()
+        da.reset_launch_counts()
+        t0 = time.monotonic()
+        gtok = g(model, gen_prompts, 64)
+        torch.cuda.synchronize()
+        gwall = time.monotonic() - t0
+        glaunch = dict(da.LAUNCHES)
+        gsteps = -(-63 // GENERATE_CHUNK) * GENERATE_CHUNK
+        if glaunch["decode_attention"] != cfg.num_layers * gsteps or tuple(gtok.shape) != (8, 64):
+            _fail(f"MoE generate (cf {cf}): {glaunch}, tokens {tuple(gtok.shape)}")
+        t0 = time.monotonic()
+        g(model, gen_prompts, 1)
+        torch.cuda.synchronize()
+        gprefill = time.monotonic() - t0
+        dcfg = lm_mod.draft_config(cfg)
+        draft = DecoderLM(dcfg, device="cuda", seed=seed + 4)
+        sp = spec_mod.make_speculative_generate_fn(cfg, dcfg, k=4, return_stats=True)
+        sp(model, draft, gen_prompts[:1, :16], 6)
+        torch.cuda.synchronize()
+        da.reset_launch_counts()
+        t0 = time.monotonic()
+        stok, stats = sp(model, draft, gen_prompts[:1], 64)
+        torch.cuda.synchronize()
+        swall = time.monotonic() - t0
+        slaunch = dict(da.LAUNCHES)
+        hist = stats["acceptance_hist"].tolist()
+        if slaunch["decode_attention"] != cfg.num_layers * sum(hist) or tuple(stok.shape) != (1, 64):
+            _fail(f"MoE speculative (cf {cf}): {slaunch} for {sum(hist)} rounds")
+        res.update({
+            "paged": _public(paged), "dense": _public(dense),
+            "dense_tokens_equal_to_paged_share": sum(
+                a == b for t, u in zip(tokens, dtokens) for a, b in zip(t, u)) / (new * len(tokens)),
+            "generate": {"batch": 8, "prompt_len": 128, "new_tokens": 64,
+                         "wall_s": gwall, "prefill_s": gprefill,
+                         "decode_tokens_per_s": 8 * 63 / (gwall - gprefill),
+                         "step_ms": (gwall - gprefill) / gsteps * 1e3,
+                         "launches": glaunch},
+            "speculative": {"k": 4, "new_tokens": 64, "acceptance_hist": hist,
+                            "wall_s": swall, "tokens_per_s": 64 / swall,
+                            "launches": slaunch},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        })
+        if cf == 1.25:
+            drops = _drops(calls)
+            del calls
+            res["drops"] = drops
+            res["dropped_per_decode_step"] = drops["decode_dropped"] / paged["decode_steps"]
+            res["step_check"] = _moe_step_check(lm_mod, da, model, cfg, seed)
+        del model, draft
+        torch.cuda.empty_cache()
+        out[f"capacity_{cf:g}"] = res
+    return out
+
+
+def window_lm_serving_moe(seed: int) -> dict:
+    """3 decode chunks of the MoE paged engine (capacity 1.25) with 8 live
+    requests; sentinels K1 and K2; the MoE layers' share of the device
+    time (each `MoEMlp.forward` under a profiler range: the device time of
+    the kernels launched inside it, router and routing included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from walkai_nos_tpu_torch.models.lm import DecoderLM, LMConfig
+    from walkai_nos_tpu_torch.models.moe import MoEMlp
+    from walkai_nos_tpu_torch.models.serve import ContinuousBatcher
+    from walkai_nos_tpu_torch.ops import decode_attention as da
+
+    cfg = _moe_cfg(LMConfig, 1.25)
+    engine = ContinuousBatcher(cfg, DecoderLM(cfg, device="cuda", seed=seed + 30),
+                               **LM_ENGINE_KW)
+    engine.warm()
+    rng = np.random.default_rng(seed + 32)
+    for _ in range(8):
+        engine.submit(rng.integers(0, cfg.vocab_size, 40), max_new_tokens=64)
+    while engine._pending or engine._prefilling:
+        engine.step()
+    forward = MoEMlp.forward
+
+    def ranged(self, *args):
+        with record_function("moe_mlp"):
+            return forward(self, *args)
+
+    MoEMlp.forward = ranged
+    torch.cuda.synchronize()
+    da.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(3):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    MoEMlp.forward = forward
+    summary = _profile_summary(
+        prof, wall, "moe_profile.txt", da.LAUNCHES,
+        {"paged_attention": "decode_mma_kernel", "qkv_rope": "qkv_mma_kernel"})
+    # The range's CPU-side row: the device time of the kernels launched
+    # inside it (its GPU-side twin spans the range, gaps included).
+    moe_us = sum(ev.device_time_total for ev in prof.key_averages()
+                 if ev.key == "moe_mlp" and ev.device_type == DeviceType.CPU)
+    summary["moe_device_ms"] = moe_us / 1e3
+    summary["moe_share_of_device_time"] = moe_us / 1e6 / summary["device_kernel_s"]
+    summary["decode_steps"] = 3 * engine.chunk_steps
+    return summary
+
+
 # The ViT detector at YOLOS-small width: batch 32, 196 patches + 100
 # detection tokens, 6 heads of 64.
 VIT_B, VIT_S, VIT_H, VIT_D = 32, 296, 6, 64
@@ -1929,6 +2637,7 @@ WINDOWS = {
     "vit_serving": window_vit_serving,
     "vit_training": window_vit_training,
     "lm_training": window_lm_training,
+    "lm_serving_moe": window_lm_serving_moe,
 }
 
 
@@ -2266,6 +2975,7 @@ def main() -> int:
     if args.window:
         print(json.dumps(WINDOWS[args.window](args.seed)), flush=True)
         return 0
+    from walkai_nos_tpu_torch.models import hf as hf_mod
     from walkai_nos_tpu_torch.models import lm as lm_mod
     from walkai_nos_tpu_torch.models.lm import DecoderLM, LMConfig
     from walkai_nos_tpu_torch.models import data as data_mod
@@ -2370,6 +3080,24 @@ def main() -> int:
                                     serve_prompts, args.seed)
     print(json.dumps({"sim_exactness": sim_exact}), flush=True)
     phase_end_s['sim_exactness'] = time.monotonic() - start
+    torch.cuda.empty_cache()
+    gchecks, grows = gpt2_kernel_phase(da, args.seed)
+    for c in gchecks:
+        print(json.dumps({"check": c}), flush=True)
+    for r in grows:
+        print(json.dumps({"timing": r}), flush=True)
+    phase_end_s['gpt2_kernel_phase'] = time.monotonic() - start
+    hf_llama = hf_llama_phase(hf_mod, ContinuousBatcher, LMConfig, da, args.seed)
+    print(json.dumps({"hf_llama": hf_llama}), flush=True)
+    phase_end_s['hf_llama'] = time.monotonic() - start
+    hf_gpt2 = hf_gpt2_phase(hf_mod, ContinuousBatcher, da, args.seed)
+    print(json.dumps({"hf_gpt2": hf_gpt2}), flush=True)
+    phase_end_s['hf_gpt2'] = time.monotonic() - start
+    moe = moe_serving_phase(ContinuousBatcher, LMConfig, DecoderLM, make_generate_fn,
+                            spec_mod, lm_mod, da, args.seed)
+    moe["profile"] = run_window("lm_serving_moe", args.seed)
+    print(json.dumps({"moe_serving": moe}), flush=True)
+    phase_end_s['moe_serving'] = time.monotonic() - start
     torch.cuda.empty_cache()
 
     vchecks, vrows = attention_kernel_phase(fa, args.seed)
@@ -2483,13 +3211,55 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+    # The HF-import and MoE legs run K1 and K2 (and the MoE model's dense
+    # paths K7) on paths of their own: at TinyLlama's shapes, timed above,
+    # and at GPT-2 small's (`gpt2_kernel_phase`).
+    def bf16_err(pool, name):
+        return max(c["max_abs_err"] for c in pool
+                   if c["kernel"] == name and c["dtype"] == "bfloat16")
+
+    tiny = {n: (next(r for r in rows if r["kernel"] == n and r["steps"] == 1),
+                bf16_err(checks, n)) for n in ("paged_attention", "qkv_rope")}
+    small = {n: (next(r for r in grows if r["kernel"] == n), bf16_err(gchecks, n))
+             for n in ("paged_attention", "qkv_rope")}
+    moe_low = moe["capacity_1.25"]
+    decode_sites = {
+        "paged_attention": "walkai_nos_tpu/ops/decode_attention.py:586",
+        "qkv_rope": "walkai_nos_tpu/ops/decode_attention.py:1006",
+    }
+    for path, launched, timed in (
+        ("hf_llama", hf_llama["launches"], tiny),
+        ("gpt2_small", hf_gpt2["paged"]["launches"], small),
+        ("moe", moe_low["paged"]["launches"], tiny),
+    ):
+        for name, (t, err) in timed.items():
+            kernels.append({
+                "name": f"{name}_{path}", "route": "cuda",
+                "source": f"{src}{name}.cu", "replaces": decode_sites[name],
+                "launches": launched[name], "max_abs_err": err,
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            })
+    t = next(r for r in rows if r["kernel"] == "decode_attention"
+             and r["case"] == "generate")
+    kernels.append({
+        "name": "decode_attention_moe", "route": "cuda",
+        "source": f"{src}decode_attention.cu",
+        "replaces": "walkai_nos_tpu/ops/decode_attention.py:313",
+        "launches": sum(moe_low[p]["launches"]["decode_attention"]
+                        for p in ("dense", "generate", "speculative")),
+        "max_abs_err": bf16_err(checks, "decode_attention"),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    })
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({
             "card": smi, "ptxas": ptxas, "tensor_core_instructions": tensor_cores,
-            "checks": [launch_check] + checks + vchecks,
+            "checks": [launch_check] + checks + gchecks + vchecks,
             "decode_launches": decode_launches,
-            "timing": rows + vrows,
+            "timing": rows + grows + vrows,
+            "hf_llama": hf_llama, "hf_gpt2": hf_gpt2, "moe_serving": moe,
             "serving": serve, "generate": generate, "speculative": speculative,
             "dense_serving": dense_serve, "exactness_f32": exact,
             "unfused": unfused, "int8_serving": int8_serve,

@@ -203,6 +203,57 @@ def test_decoder_fused_route_matches_unfused(cuda):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
+DECODER_FAMILIES = {
+    # 2 layers, the second an MoE block (4 experts, top-2): K2 + K1 run
+    # on the f32 residual the MoE layer leaves behind.
+    "moe": dict(num_heads=8, num_kv_heads=2, mlp_dim=256, norm="rmsnorm",
+                mlp="swiglu", rope=True, use_bias=False, head_bias=False,
+                num_experts=4, expert_top_k=2),
+    # GPT-2 family: biases (K2's bias arm), learned positions (no
+    # rotary), MHA (K1 at group 1).
+    "gpt2": dict(num_heads=8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(DECODER_FAMILIES))
+def test_decoder_paged_step_launches_k2_k1_and_matches_plain(cuda, family):
+    """One paged decode step after a wide prefill, in f32: K2 and K1
+    launch once per layer, and the logits and pools equal the plain
+    route's (`fused_qkv_paged_reference` on the same CUDA tensors)."""
+    cfg = tlm.LMConfig(
+        vocab_size=128, hidden_dim=128, num_layers=2, max_seq_len=512,
+        dtype="float32", ragged_decode=True, paged_decode=True,
+        paged_blocks=13, **DECODER_FAMILIES[family],
+    )
+    model = tlm.DecoderLM(cfg, device=cuda, seed=11)
+    # Distinct blocks: a slot parked on the scratch block reads its own
+    # fresh row at an aliased position before the scatter (K1 injects)
+    # or after it (the plain route), so its output differs by design.
+    table = torch.arange(1, 13, device=cuda, dtype=torch.int32).reshape(3, 4)
+    tokens = torch.randint(0, 128, (3, 65), device=cuda)
+    out = []
+    for plain in (False, True):
+        cache = tlm.PagedCache.zeros(cfg, cuda)
+        index = torch.tensor([0, 130, 300], device=cuda)
+        kernel_route = tlm.fused_qkv_paged_attention
+        if plain:
+            tlm.fused_qkv_paged_attention = da.fused_qkv_paged_reference
+        try:
+            with torch.inference_mode():
+                model(tokens[:, :64], cache, table, index)  # wide prefill
+                da.reset_launch_counts()
+                logits = model(tokens[:, 64:], cache, table, index + 64)
+        finally:
+            tlm.fused_qkv_paged_attention = kernel_route
+        launches = dict(da.LAUNCHES)
+        want = 0 if plain else cfg.num_layers
+        assert launches["qkv_rope"] == launches["paged_attention"] == want, launches
+        out.append((logits, cache))
+    torch.testing.assert_close(out[0][0], out[1][0], atol=1e-4, rtol=1e-4)
+    for a, b in zip(out[0][1].k + out[0][1].v, out[1][1].k + out[1][1].v):
+        torch.testing.assert_close(a[1:], b[1:], atol=1e-4, rtol=1e-4)
+
 # -- the int8 arms of K1 and K2 ----------------------------------------------
 
 

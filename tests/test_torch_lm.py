@@ -52,10 +52,11 @@ def _jax_params(cfg, seed):
     )
 
 
-def _run_both(family, index0, steps_after=3, seed=0):
-    jcfg = jlm.LMConfig(**FAMILIES[family], **PAGED)
-    tcfg = tlm.LMConfig(**FAMILIES[family], **PAGED)
-    params = _jax_params(jlm.LMConfig(**FAMILIES[family]), seed)
+def _run_both(family, index0, steps_after=3, seed=0, **extra):
+    fields = {**FAMILIES[family], **extra}
+    jcfg = jlm.LMConfig(**fields, **PAGED)
+    tcfg = tlm.LMConfig(**fields, **PAGED)
+    params = _jax_params(jlm.LMConfig(**fields), seed)
     rng = np.random.default_rng(seed + 1)
     b = len(index0)
     table = rng.permutation(np.arange(1, 8))[:b * 2].reshape(b, 2).astype(np.int32)
@@ -77,11 +78,13 @@ def _run_both(family, index0, steps_after=3, seed=0):
 
     tokens = rng.integers(0, 64, (b, 64)).astype(np.int32)
     outs = []
+    # One program per shape: op-by-op dispatch compiles every primitive.
+    apply = jax.jit(lambda cache, tokens: jmodel.apply(
+        {"params": params, "cache": cache}, tokens, decode=True,
+        block_table=jnp.asarray(table), mutable=["cache"],
+    ))
     for step in range(1 + steps_after):
-        jl, variables = jmodel.apply(
-            {"params": params, "cache": cache}, jnp.asarray(tokens),
-            decode=True, block_table=jnp.asarray(table), mutable=["cache"],
-        )
+        jl, variables = apply(cache, jnp.asarray(tokens))
         cache = variables["cache"]
         with torch.inference_mode():
             tl = tmodel(torch.from_numpy(tokens), tcache, t_table, t_index)
@@ -158,27 +161,40 @@ def test_config_validation(kwargs, err):
             jlm.LMConfig(**kwargs)
 
 
-def test_moe_config_refuses_the_cache_forwards():
-    """Experts run in the no-cache forward only: capacity routing makes a
-    row's output depend on the batch, which the engines' invariant
-    forbids. The cache forwards and the entry points that bridge params
-    for them raise."""
-    fields = dict(FAMILIES["llama"], num_experts=4)
-    cfg = tlm.LMConfig(**fields)
-    model = tlm.DecoderLM(cfg, device="cpu")
-    tokens = torch.zeros(2, 3, dtype=torch.int64)
-    assert model(tokens).shape == (2, 3, 64)
-    paged = tlm.LMConfig(**fields, **PAGED)
-    for call in (
-        lambda: model(tokens, tlm.DenseCache.zeros(cfg, 2, "cpu")),
-        lambda: tlm.DecoderLM(paged, device="cpu")(
-            tokens, tlm.PagedCache.zeros(paged, "cpu"),
-            torch.tensor([[1, 2], [3, 4]]), torch.tensor([0, 5]),
-        ),
-        lambda: tlm.DecoderLM.from_params(cfg, model),
-    ):
-        with pytest.raises(NotImplementedError, match="MoE in the decode paths"):
-            call()
+def test_moe_cache_forwards_match_jax():
+    """Experts in the cache forwards (4 experts, top-2, an MoE block on
+    the second layer, the default capacity 1.25): the paged cache over
+    three slots, the dense cache, and `from_params` of a flax tree and of
+    a DecoderLM give JAX's logits, in f32 within TOL. Each call routes
+    its batch x steps tokens together, as JAX's does."""
+    moe = dict(num_experts=4, expert_top_k=2)
+    outs, _, _, _ = _run_both("llama", [0, 70, 250], **moe)
+    for step, (jl, tl) in enumerate(outs):
+        np.testing.assert_allclose(tl, jl, atol=TOL, rtol=TOL,
+                                   err_msg=f"paged step {step}")
+    fields = dict(FAMILIES["llama"], **moe)
+    jcfg, tcfg = jlm.LMConfig(**fields), tlm.LMConfig(**fields)
+    params = _jax_params(jcfg, 1)
+    jmodel = jlm.DecoderLM(jcfg)
+    cache = jmodel.init(
+        jax.random.PRNGKey(0), jnp.zeros((2, 1), jnp.int32), decode=True
+    )["cache"]
+    apply = jax.jit(lambda cache, tokens: jmodel.apply(
+        {"params": params, "cache": cache}, tokens, decode=True,
+        mutable=["cache"],
+    ))
+    from_tree = tlm.DecoderLM.from_params(tcfg, params, "cpu")
+    assert tlm.DecoderLM.from_params(tcfg, from_tree) is from_tree
+    tcache = tlm.DenseCache.zeros(tcfg, 2, "cpu")
+    tokens = np.random.default_rng(2).integers(0, 64, (2, 20)).astype(np.int32)
+    for step in range(3):
+        jl, variables = apply(cache, jnp.asarray(tokens))
+        cache = variables["cache"]
+        with torch.inference_mode():
+            tl = from_tree(torch.from_numpy(tokens), tcache).numpy()
+        np.testing.assert_allclose(tl, np.asarray(jl), atol=TOL, rtol=TOL,
+                                   err_msg=f"dense step {step}")
+        tokens = np.argmax(np.asarray(jl)[:, -1:], axis=-1).astype(np.int32)
 
 
 @pytest.mark.parametrize("kv_dtype", ["model", "int8", "int8-sim"])

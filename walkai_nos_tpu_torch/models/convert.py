@@ -22,6 +22,10 @@ training, so f32 leaves stay f32). A quantized LM
 tree (`models/lm.quantize_lm_params`) keeps its int8 kernels int8 and its
 `scale` rows f32: an int8 parameter takes only an int8 leaf, never a
 float one cast down.
+
+`flax_params_from_model` goes the other way: a module's parameters as
+that tree (`unflatten_flax_params` inverts the flattening), which the
+HuggingFace exports of `models/hf.py` take.
 """
 
 from __future__ import annotations
@@ -31,7 +35,12 @@ import torch
 
 from torch import nn
 
-__all__ = ["flatten_flax_params", "load_flax_params"]
+__all__ = [
+    "flatten_flax_params",
+    "flax_params_from_model",
+    "load_flax_params",
+    "unflatten_flax_params",
+]
 
 
 def flatten_flax_params(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -47,6 +56,32 @@ def flatten_flax_params(tree, prefix: str = "") -> dict[str, np.ndarray]:
         else:
             out[key] = np.asarray(sub)
     return out
+
+
+def unflatten_flax_params(flat) -> dict:
+    """The inverse of `flatten_flax_params`: {'blocks.0.attn.qkv.kernel':
+    a} -> {'block0': {'attn': {'qkv': {'kernel': a}}}}."""
+    tree: dict = {}
+    for key, leaf in flat.items():
+        parts = key.split(".")
+        if parts[0] == "blocks":
+            parts = [f"block{parts[1]}", *parts[2:]]
+        node = tree
+        for name in parts[:-1]:
+            node = node.setdefault(name, {})
+        node[parts[-1]] = leaf
+    return tree
+
+
+def flax_params_from_model(model: nn.Module) -> dict:
+    """A module's parameters as the flax tree `load_flax_params` takes
+    (nested numpy arrays on the host): float leaves widened to f32, int8
+    leaves kept int8."""
+    flat = {}
+    for name, p in model.named_parameters():
+        t = p.detach().cpu()
+        flat[name] = (t if t.dtype == torch.int8 else t.float()).numpy()
+    return unflatten_flax_params(flat)
 
 
 @torch.no_grad()

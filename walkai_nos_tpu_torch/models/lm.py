@@ -6,9 +6,11 @@ Port of `walkai_nos_tpu/models/lm.py`. `LMConfig` keeps every field,
 default and validation of the JAX config, so configurations, capture
 fingerprints and replay keys carry over; the knobs the port does not run
 yet (tensor parallelism, ring/ulysses attention) raise
-NotImplementedError at construction, and experts (`num_experts > 0`,
-`models/moe.py`) run only in the no-cache forward: the cache forwards
-refuse them (capacity routing makes a row's output depend on the batch).
+NotImplementedError at construction. Experts (`num_experts > 0`,
+`models/moe.py`) run in every forward, routed as JAX routes them: over
+the tokens of one call, with a capacity from that call's token count, so
+under drops a row's output depends on the rest of the call (the paged
+engine's prefill lane names the rows JAX would route: `moe_rows`).
 
 `DecoderLM(tokens)` with no cache is the JAX `model.apply(params,
 tokens)`: rotary (or learned positions) at 0 .. seq-1, K/V repeated to
@@ -639,8 +641,11 @@ class CausalAttention(nn.Module):
 
 class DecoderBlock(nn.Module):
     """Attention and an MLP, each behind a pre-norm and a residual. With
-    `use_moe` the MLP is `MoEMlp` (the JAX block's `moe` scope), which
-    only the full forward runs."""
+    `use_moe` the MLP is `MoEMlp` (the JAX block's `moe` scope). Its
+    output keeps the f32 norm's dtype, as in JAX, so from the first MoE
+    block on the residual is f32 in every forward; the projections and
+    K2 still take the compute dtype (`Dense` casts its input, as flax
+    does)."""
 
     def __init__(self, cfg: LMConfig, device, gen, param_dtype=None,
                  use_moe=False):
@@ -671,14 +676,19 @@ class DecoderBlock(nn.Module):
             h = F.gelu(self.fc1(h), approximate="tanh")
         return self.fc2(h)
 
-    def forward(self, x, kv, table, index):
+    def forward(self, x, kv, table, index, moe_rows=None):
+        """The cache forward. An MoE block routes the first `moe_rows`
+        batch rows (None: all) and drops its aux loss: JAX's decode
+        forward sows it and nothing reads it."""
         x = x + self.attn(self.norm1(x), kv, table, index)
-        return x + self._mlp(self.norm2(x))
+        h = self.norm2(x)
+        if self.moe is None:
+            return x + self._mlp(h)
+        return x + self.moe(h, moe_rows)[0]
 
     def sequence(self, x):
         """The full causal forward: (x, the MoE layer's aux loss or
-        None). The MoE output is f32 (it keeps the f32 norm's dtype, as
-        in JAX), so from the first MoE block on the residual is f32."""
+        None)."""
         x = x + self.attn.sequence(self.norm1(x))
         h = self.norm2(x)
         if self.moe is None:
@@ -802,14 +812,6 @@ class Embed(nn.Module):
         return self.embedding.to(self.dtype)[tokens.long()]
 
 
-def _refuse_moe_decode(cfg: LMConfig) -> None:
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            "num_experts > 0 runs only in the no-cache forward; the cache "
-            "forwards are not ported yet (ROADMAP: MoE in the decode paths)"
-        )
-
-
 class DecoderLM(nn.Module):
     """The decoder LM: the full causal forward (no cache) and the decode
     forward over a paged or a dense cache. Weights are random from `seed`
@@ -870,7 +872,6 @@ class DecoderLM(nn.Module):
         as K2 reads them), or the JAX package's flax param tree as nested
         numpy arrays (bridged by `models/convert.py` onto `device`, None
         meaning `cuda`)."""
-        _refuse_moe_decode(cfg)
         if isinstance(params, DecoderLM):
             ignored = {
                 f: getattr(cfg, f) for f in (
@@ -897,7 +898,8 @@ class DecoderLM(nn.Module):
         return load_flax_params(cls(cfg, device=device), params)
 
     def forward(self, tokens, cache=None, table=None, index=None, *,
-                intermediates: list | None = None):
+                intermediates: list | None = None,
+                moe_rows: int | None = None):
         """tokens [batch, steps] -> f32 logits [batch, steps, vocab].
 
         With no cache: the full causal forward over positions 0 ..
@@ -910,12 +912,15 @@ class DecoderLM(nn.Module):
         through `table` ([batch, nlog] block ids), and `index` ([batch]
         int) is the caller's to advance. With a `DenseCache` (table and
         index None): the tokens sit at cache.index onwards, and the
-        forward writes the rows and advances cache.index by steps."""
+        forward writes the rows and advances cache.index by steps.
+
+        `moe_rows` (cache forwards): the MoE layers route only the first
+        `moe_rows` batch rows, the others get no MoE output (None: all
+        rows route)."""
         if cache is None:
-            if table is not None or index is not None:
-                raise ValueError("table= and index= go with a PagedCache")
+            if table is not None or index is not None or moe_rows is not None:
+                raise ValueError("table=, index= and moe_rows= go with a cache")
             return self._sequence(tokens, intermediates)
-        _refuse_moe_decode(self.cfg)
         c = self.cfg
         steps = tokens.shape[1]
         dense = isinstance(cache, DenseCache)
@@ -938,7 +943,7 @@ class DecoderLM(nn.Module):
             rows = start[..., None] + torch.arange(steps, device=x.device)
             x = x + self.pos_embed[0][rows].to(x.dtype)
         for i, block in enumerate(self.blocks):
-            x = block(x, cache.layer(i), table, index)
+            x = block(x, cache.layer(i), table, index, moe_rows)
         if dense:
             cache.index += steps
         return self.head(self.norm(x))

@@ -12,7 +12,8 @@ The JAX module `sow`s its load-balancing loss into the `intermediates`
 collection; here `MoEMlp.forward` returns it beside the output, the LM's
 no-cache forward appends each MoE layer's to the list its caller passes
 (`DecoderLM.forward(tokens, intermediates=...)`), and
-`aux_loss_from_intermediates` sums them.
+`aux_loss_from_intermediates` sums them. The cache forwards drop it, as
+nothing reads what JAX's decode forward sows.
 """
 
 from __future__ import annotations
@@ -88,24 +89,37 @@ class MoEMlp(nn.Module):
         c = math.ceil(self.capacity_factor * tokens * self.top_k / self.num_experts)
         return min(max(1, c), tokens)
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(
+        self, x: torch.Tensor, rows: int | None = None
+    ) -> tuple[torch.Tensor, torch.Tensor]:
         """x [batch, seq, d] -> (y [batch, seq, d] in x's dtype, the
-        GShard load-balancing loss, f32 0-d)."""
+        GShard load-balancing loss, f32 0-d).
+
+        `rows` routes only the first `rows` batch rows, as JAX's call
+        over exactly those rows would: their capacity comes from their
+        rows x seq tokens, and the other rows get a zero output and take
+        no slot. The expert buffers keep the width of the whole batch,
+        so the products have one shape whatever `rows` is (the paged
+        engine's prefill lane: JAX sizes its lane to the rows in use,
+        the port's runs all of them)."""
         batch, seq, d = x.shape
         num_experts = self.num_experts
         tokens = batch * seq
+        routed = tokens if rows is None else rows * seq
         xt = x.reshape(tokens, d)
         gates = torch.softmax(self.router(xt), dim=-1)  # [T, E] f32
-        capacity = self.capacity(tokens)
-        slots = torch.arange(capacity, device=x.device, dtype=torch.float32)
+        capacity = self.capacity(routed)
+        width = self.capacity(tokens)
+        slots = torch.arange(width, device=x.device, dtype=torch.float32)
+        live = (torch.arange(tokens, device=x.device) < routed).float()[:, None]
 
-        combine = torch.zeros(tokens, num_experts, capacity, device=x.device)
+        combine = torch.zeros(tokens, num_experts, width, device=x.device)
         occupancy = torch.zeros(1, num_experts, device=x.device)
         remaining = gates
         weights, first = [], None
         for _ in range(self.top_k):
             # Repeated argmax with the earlier rounds' choices masked out.
-            mask = F.one_hot(remaining.argmax(-1), num_experts).float()
+            mask = F.one_hot(remaining.argmax(-1), num_experts).float() * live
             first = mask if first is None else first
             remaining = remaining * (1.0 - mask)
             # Each token's slot in its chosen expert's buffer, after what
@@ -127,7 +141,7 @@ class MoEMlp(nn.Module):
         # GShard's load-balancing loss on the assignment BEFORE capacity:
         # truncating would cap the penalty exactly when an expert
         # overflows.
-        aux = num_experts * (first.mean(0) * gates.mean(0)).sum()
+        aux = num_experts * (first[:routed].mean(0) * gates[:routed].mean(0)).sum()
 
         w_up = self.experts_up.to(self.dtype)
         w_down = self.experts_down.to(self.dtype)

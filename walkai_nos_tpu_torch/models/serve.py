@@ -46,7 +46,11 @@ What differs from the JAX engine, and why:
   `cache_len`. With fixed
   shapes a row's output does not depend on what else shares the
   dispatch, even through stock GEMMs for the MLP and the LM head — the
-  engine's defining invariant (ARCHITECTURE.md, capture & replay).
+  engine's defining invariant (ARCHITECTURE.md, capture & replay). An
+  MoE layer routes the tokens JAX's call routes (the lane's first
+  `rows`, a power of two of the rows in use; every slot in a decode
+  step), so under capacity drops a row depends on the batch in both
+  engines, as in JAX's.
 - Sampled streams are counter-based (`models/decode.py`), not JAX's
   threefry bits; greedy streams match the JAX engine token for token.
 - The engine's features of later slices raise NotImplementedError at
@@ -676,10 +680,20 @@ class ContinuousBatcher:
         token and table arrays, each admitted request writing its next
         chunk (the final chunk aligned to the prompt's end, clamped to
         its cached prefix), plus the finishing rows. Marks the request's
-        own index nodes ready once their writing chunk is dispatched."""
+        own index nodes ready once their writing chunk is dispatched.
+
+        JAX runs a lane of `rows` rows: those in use, rounded up to a
+        power of two, capped at `prefill_lanes`; its pad rows carry
+        token 0 at position 0 through the scratch table. The port's
+        first `rows` rows are the same, and only they route through the
+        MoE layers (`moe_rows`); the rows past them start at the table's
+        capacity, so their K/V writes are dropped and the scratch block
+        holds what JAX's does."""
         W, P = self.prefill_chunk, self.prefill_lanes
+        rows = min(1 << (len(self._prefilling) - 1).bit_length(), P)
         tok = np.zeros((P, W), np.int64)
         start = np.zeros(P, np.int32)
+        start[rows:] = self._nlog * PAGE_ROWS
         tbl = np.zeros((P, self._nlog), np.int32)
         true_len = np.ones(P, np.int32)
         temp = np.zeros(P, np.float32)
@@ -723,6 +737,7 @@ class ContinuousBatcher:
                 ("fin_slots", np.asarray(fin_slots, np.int64)),
             )
         }
+        lane["rows"] = rows
         return lane, finished
 
     def _flip_finished(self, finished: list[_Prefill]) -> None:

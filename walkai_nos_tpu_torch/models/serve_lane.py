@@ -22,8 +22,11 @@ engine's semantics (`walkai_nos_tpu/models/serve.py`):
 Shapes are fixed by `slots`, `prefill_lanes` and `prefill_chunk` (the
 lane always runs all `prefill_lanes` rows over the full table width),
 or by the prompt bucket (dense admission), so a row's output never
-depends on what shares the dispatch, even through stock GEMMs. The
-caches are updated in place (JAX donates them).
+depends on what shares the dispatch, even through stock GEMMs. The one
+exception is JAX's own: an MoE layer with a capacity that drops tokens
+routes the rows of one call together, so there a row's output depends
+on the other rows JAX would route with it (ROADMAP §3). The caches are
+updated in place (JAX donates them).
 
 Sampling is counter-based (`models/decode.py`): slot s draws token n of
 its request with (seed, n); the lane draws the first token with n = 0.
@@ -151,9 +154,11 @@ def run_lane(model: DecoderLM, st: SlotState, lane: dict) -> None:
     [P, W], `start` [P], `table` [P, nlog], `true_len` [P] and the
     per-row knobs `temp`/`topk`/`topp`/`seed` [P]; `fin_rows` / `fin_slots`
     (host-built, possibly empty) name the rows that finish their prompt
-    and the slots they flip."""
+    and the slots they flip; `rows` (a host int) is how many leading rows
+    route through the MoE layers (the rows of JAX's lane)."""
     tok = lane["tok"]
-    logits = model(tok, st.cache, lane["table"], lane["start"])
+    logits = model(tok, st.cache, lane["table"], lane["start"],
+                   moe_rows=lane["rows"])
     rows, slots = lane["fin_rows"], lane["fin_slots"]
     if rows.numel() == 0:
         return

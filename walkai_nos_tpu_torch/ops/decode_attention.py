@@ -279,7 +279,12 @@ def scatter_paged_rows(
     dropped row is aimed at the scratch block 0 and carries that
     location's current value, so the write changes nothing. Only a
     kept row whose table entry is the scratch block itself (an idle or
-    unbacked entry, garbage by construction) can race with it."""
+    unbacked entry) can land on the same location. On the CPU the
+    dropped rows are written first, so there the kept row's value
+    stays, and duplicate kept rows land in row order, as in JAX's
+    scatter; an MoE model's idle rows read that block, and their routing
+    takes capacity from live rows. The GPU writes duplicates in no
+    defined order."""
     kvh, page, hd = k_pool.shape[1:]
     bsz, _, steps, _ = k.shape
     nlog = table.shape[1]
@@ -289,11 +294,15 @@ def scatter_paged_rows(
     phys = torch.gather(table.long(), 1, logical).reshape(-1)
     phys = torch.where(keep.reshape(-1), phys, torch.zeros_like(phys))
     row = (pos % page).reshape(-1)
+    order = slice(None)
+    if not k_pool.is_cuda:
+        order = torch.argsort(keep.reshape(-1).to(torch.int32), stable=True)
+        phys, row, keep = phys[order], row[order], keep[order]
     if quant is not None:
         k, k_scales = quantize_kv_rows(k, quant)
         v, v_scales = quantize_kv_rows(v, quant)
     for pool, new in ((k_pool, k), (v_pool, v)):
-        rows = new.permute(0, 2, 1, 3).reshape(bsz * steps, kvh, hd)
+        rows = new.permute(0, 2, 1, 3).reshape(bsz * steps, kvh, hd)[order]
         rows = torch.where(
             keep[..., None], rows.to(pool.dtype), pool[phys, :, row, :]
         )
@@ -301,7 +310,7 @@ def scatter_paged_rows(
     if quant is None:
         return k_pool, v_pool
     for pool, new in ((k_scale_pool, k_scales), (v_scale_pool, v_scales)):
-        rows = new.permute(0, 2, 1).reshape(bsz * steps, kvh)
+        rows = new.permute(0, 2, 1).reshape(bsz * steps, kvh)[order]
         pool[phys, :, row] = torch.where(keep, rows, pool[phys, :, row])
     return k_pool, v_pool, k_scale_pool, v_scale_pool
 
