@@ -43,7 +43,8 @@ def _case(dev, dtype, *, b=5, h=8, kvh=2, hd=64, steps=4, nlog=4, seed=0):
     def rnd(*shape, std=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
-    table = (torch.randperm(nb - 1, generator=gen, device=dev) + 1)[: b * nlog]
+    # Blocks 1 .. nb - 2: block nb - 1 is the scatter's dump block.
+    table = (torch.randperm(nb - 2, generator=gen, device=dev) + 1)[: b * nlog]
     # Slot start, the edge of block 0, inside block 1, the last row, and
     # past the table's capacity.
     index = torch.tensor([0, 127, 200, nlog * PAGE - steps, nlog * PAGE + 50])
@@ -253,6 +254,62 @@ def test_decoder_paged_step_launches_k2_k1_and_matches_plain(cuda, family):
     torch.testing.assert_close(out[0][0], out[1][0], atol=1e-4, rtol=1e-4)
     for a, b in zip(out[0][1].k + out[0][1].v, out[1][1].k + out[1][1].v):
         torch.testing.assert_close(a[1:], b[1:], atol=1e-4, rtol=1e-4)
+
+@pytest.mark.cuda
+def test_moe_paged_engine_under_drops_is_repeatable(cuda):
+    """The paged engine at the default capacity (1.25), with idle slots
+    beside live ones and a lane of 5 requests in 8 (rounded to 8 rows,
+    3 of them pad rows parked on the scratch block, as JAX's lane):
+    under capacity drops an MoE call's output depends on every row it
+    routes, idle and pad rows included, and those rows write and read
+    shared rows of the scratch block. Two runs of one engine setup give
+    the same tokens, and the capacity formula dropped tokens in lane and
+    decode calls alike."""
+    from walkai_nos_tpu_torch.models.moe import MoEMlp
+    from walkai_nos_tpu_torch.models.serve import ContinuousBatcher
+
+    cfg = tlm.LMConfig(
+        vocab_size=128, hidden_dim=128, num_layers=4, num_heads=8,
+        num_kv_heads=2, mlp_dim=256, max_seq_len=256, dtype="float32",
+        norm="rmsnorm", mlp="swiglu", rope=True, use_bias=False,
+        head_bias=False, num_experts=4, moe_every=2, expert_top_k=2,
+    )
+    model = tlm.DecoderLM(cfg, device=cuda, seed=5)
+    drops = {"lane": 0, "decode": 0}
+
+    def count(moe, args):
+        h, rows = args[0], (args[1] if len(args) > 1 else None)
+        b, s, d = h.shape
+        routed = (b if rows is None else rows) * s
+        chosen = torch.topk(moe.router(h.reshape(-1, d)[:routed]), moe.top_k).indices
+        per_expert = torch.bincount(chosen.reshape(-1), minlength=moe.num_experts)
+        drops["lane" if s > 1 else "decode"] += int(
+            torch.clamp(per_expert - moe.capacity(routed), min=0).sum())
+
+    gen = torch.Generator().manual_seed(2)
+    for m in model.modules():
+        if isinstance(m, MoEMlp):
+            with torch.no_grad():  # skewed routing: capacity bites
+                m.router.bias.copy_(torch.randn(4, generator=gen))
+            m.register_forward_pre_hook(count)
+    prompts = [torch.randint(0, 128, (int(n),), generator=gen).tolist()
+               for n in (20, 37, 9, 50, 28, 14, 41)]
+    budgets = [9, 5, 12, 7, 4, 10, 6]
+    runs = []
+    for _ in range(2):
+        engine = ContinuousBatcher(cfg, model, slots=6, cache_len=128,
+                                   chunk_steps=2, prefill_chunk=16,
+                                   prefill_lanes=8)
+        rids = [engine.submit(p, max_new_tokens=m)
+                for p, m in zip(prompts[:5], budgets[:5])]
+        engine.step()
+        rids += [engine.submit(p, max_new_tokens=m)
+                 for p, m in zip(prompts[5:], budgets[5:])]
+        out = engine.run()
+        runs.append([out[r] for r in rids])
+    assert drops["lane"] > 0 and drops["decode"] > 0, drops
+    assert runs[0] == runs[1]
+
 
 # -- the int8 arms of K1 and K2 ----------------------------------------------
 

@@ -28,9 +28,10 @@ functions on one device, through `models/train.py`.
 The decode forward runs over one of two KV caches:
 
 - a PAGED cache (`PagedCache`, the paged serving engine): each layer
-  holds a shared pool of 128-row K/V blocks ([paged_blocks, kv_heads,
-  PAGE_ROWS, head_dim]); a per-slot block table maps logical cache block
-  j of slot b to a pool block. The per-slot cache index is an argument,
+  holds a shared pool of 128-row K/V blocks ([paged_blocks + 1,
+  kv_heads, PAGE_ROWS, head_dim]: the extra last block takes the writes
+  `scatter_paged_rows` drops, and no table names it); a per-slot block
+  table maps logical cache block j of slot b to a pool block. The per-slot cache index is an argument,
   not cache state: the caller advances it by the step count after each
   forward;
 - a DENSE cache (`DenseCache`: one-shot generation, speculative decoding
@@ -699,12 +700,13 @@ class DecoderBlock(nn.Module):
 
 @dataclass
 class PagedCache:
-    """Per-layer K/V block pools, [paged_blocks, kv_heads, PAGE_ROWS,
-    head_dim] each in `kv_storage_dtype`, written in place by
-    `DecoderLM.forward`. With `kv_quant`, per-layer f32 scale pools
-    `ks` / `vs` [paged_blocks, kv_heads, PAGE_ROWS] parallel them under
-    the same block ids (zero-initialized: an unwritten row dequantizes to
-    zero); else `ks` / `vs` are None."""
+    """Per-layer K/V block pools, [paged_blocks + 1, kv_heads,
+    PAGE_ROWS, head_dim] each in `kv_storage_dtype`, written in place by
+    `DecoderLM.forward`: the tables name blocks 0 .. paged_blocks - 1,
+    and the last is `scatter_paged_rows`' dump block. With `kv_quant`,
+    per-layer f32 scale pools `ks` / `vs` [paged_blocks + 1, kv_heads,
+    PAGE_ROWS] parallel them under the same block ids (zero-initialized:
+    an unwritten row dequantizes to zero); else `ks` / `vs` are None."""
 
     k: list
     v: list
@@ -715,7 +717,7 @@ class PagedCache:
     def zeros(cls, cfg: LMConfig, device) -> "PagedCache":
         if not cfg.paged_decode:
             raise ValueError("a paged cache needs a paged_decode config")
-        shape = (cfg.paged_blocks, cfg.kv_heads, PAGE_ROWS, cfg.head_dim)
+        shape = (cfg.paged_blocks + 1, cfg.kv_heads, PAGE_ROWS, cfg.head_dim)
 
         def pools(shape, dtype):
             return [

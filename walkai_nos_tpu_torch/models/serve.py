@@ -9,7 +9,8 @@ leave at EOS or their budget, without stopping the batch.
 - **Paged KV cache**: each layer's K/V live in a shared pool of 128-row
   blocks (`models/lm.PagedCache`); the host owns a per-slot block table
   (`models/block_pool.py`) uploaded per dispatch. Block 0 is the scratch
-  block idle slots write into.
+  block idle slots write into; one more block past `pool_blocks` takes
+  the writes the scatter drops (`scatter_paged_rows`).
 - **Chunked prefill lane**: up to `prefill_lanes` admitted requests each
   write `prefill_chunk` prompt tokens per dispatch, after every live
   slot's decode chunk in the same dispatch; the final chunk samples the
@@ -687,8 +688,9 @@ class ContinuousBatcher:
         token 0 at position 0 through the scratch table. The port's
         first `rows` rows are the same, and only they route through the
         MoE layers (`moe_rows`); the rows past them start at the table's
-        capacity, so their K/V writes are dropped and the scratch block
-        holds what JAX's does."""
+        capacity, so their K/V writes go to the dump block and the
+        scratch block holds what JAX's does (the last of its writers in
+        row order, as XLA's scatter writes them)."""
         W, P = self.prefill_chunk, self.prefill_lanes
         rows = min(1 << (len(self._prefilling) - 1).bit_length(), P)
         tok = np.zeros((P, W), np.int64)

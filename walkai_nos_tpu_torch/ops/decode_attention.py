@@ -52,7 +52,9 @@ counts its launches in `LAUNCHES`.
 
 Layouts at the public functions are the JAX package's. The one
 difference: `scatter_paged_rows` writes the pools IN PLACE (JAX returns
-new pools from a donated buffer) and returns them for convenience.
+new pools from a donated buffer) and returns them for convenience, and
+its pools hold one block past those the tables name, where the rows it
+drops land (`with_dump_block`).
 
 Quantized storage (the JAX package's int8 arms): a paged pool may hold
 int8 rows with one f32 scale per row in parallel `[num_blocks, kv_heads,
@@ -97,6 +99,7 @@ __all__ = [
     "rotate",
     "scatter_paged_rows",
     "split_qkv",
+    "with_dump_block",
 ]
 
 _NEG_INF = -1e30
@@ -192,6 +195,13 @@ def gather_paged_cache(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return gathered.permute(0, 2, 1, 3, 4).reshape(b, kvh, nlog * rows, d)
 
 
+def with_dump_block(pool: torch.Tensor) -> torch.Tensor:
+    """A copy of a pool (or scale pool) with one zero block appended: the
+    dump block `scatter_paged_rows` aims the rows it drops at, past every
+    block the table names."""
+    return torch.cat([pool, pool.new_zeros((1, *pool.shape[1:]))])
+
+
 def quantize_kv_rows(
     rows: torch.Tensor, quant: str
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -275,43 +285,41 @@ def scatter_paged_rows(
     emit every paged writer passes through, and their scales land at the
     same (block, row) indices, dropped past capacity alike.
 
-    The drop is done without a host sync (no boolean indexing): a
-    dropped row is aimed at the scratch block 0 and carries that
-    location's current value, so the write changes nothing. Only a
-    kept row whose table entry is the scratch block itself (an idle or
-    unbacked entry) can land on the same location. On the CPU the
-    dropped rows are written first, so there the kept row's value
-    stays, and duplicate kept rows land in row order, as in JAX's
-    scatter; an MoE model's idle rows read that block, and their routing
-    takes capacity from live rows. The GPU writes duplicates in no
-    defined order."""
+    The pool's LAST block is the dump block: no table names it
+    (`PagedCache` allocates it past `paged_blocks`). Without a host sync
+    (no boolean indexing), every row that must not land is aimed there
+    instead: a dropped row, and a kept row that a later row of the same
+    call writes over (slots parked on the scratch block 0 share its
+    rows). So each (block, row) a table names takes the last of its
+    writers in row order, as XLA's scatter writes them in order, on
+    every device: two rows of one call never race for a location that
+    anything reads."""
     kvh, page, hd = k_pool.shape[1:]
     bsz, _, steps, _ = k.shape
     nlog = table.shape[1]
-    pos = index.long()[:, None] + torch.arange(steps, device=k.device)
-    logical = torch.clamp(pos // page, 0, nlog - 1)
-    keep = (pos < nlog * page).reshape(-1, 1)
+    pos = (index.long()[:, None] + torch.arange(steps, device=k.device)).reshape(-1)
+    logical = torch.clamp(pos // page, 0, nlog - 1).reshape(bsz, steps)
     phys = torch.gather(table.long(), 1, logical).reshape(-1)
-    phys = torch.where(keep.reshape(-1), phys, torch.zeros_like(phys))
-    row = (pos % page).reshape(-1)
-    order = slice(None)
-    if not k_pool.is_cuda:
-        order = torch.argsort(keep.reshape(-1).to(torch.int32), stable=True)
-        phys, row, keep = phys[order], row[order], keep[order]
+    row = pos % page
+    inside = pos < nlog * page
+    # Sorted stably by location, a row is its location's last writer when
+    # the next row in that order writes elsewhere.
+    loc, order = torch.sort(torch.where(inside, phys * page + row, -1), stable=True)
+    last = torch.ones_like(inside)
+    last[:-1] = loc[:-1] != loc[1:]
+    keep = torch.empty_like(inside)
+    keep[order] = last
+    phys = torch.where(keep & inside, phys, k_pool.shape[0] - 1)
     if quant is not None:
         k, k_scales = quantize_kv_rows(k, quant)
         v, v_scales = quantize_kv_rows(v, quant)
     for pool, new in ((k_pool, k), (v_pool, v)):
-        rows = new.permute(0, 2, 1, 3).reshape(bsz * steps, kvh, hd)[order]
-        rows = torch.where(
-            keep[..., None], rows.to(pool.dtype), pool[phys, :, row, :]
-        )
-        pool[phys, :, row, :] = rows
+        rows = new.permute(0, 2, 1, 3).reshape(bsz * steps, kvh, hd)
+        pool[phys, :, row, :] = rows.to(pool.dtype)
     if quant is None:
         return k_pool, v_pool
     for pool, new in ((k_scale_pool, k_scales), (v_scale_pool, v_scales)):
-        rows = new.permute(0, 2, 1).reshape(bsz * steps, kvh)[order]
-        pool[phys, :, row] = torch.where(keep, rows, pool[phys, :, row])
+        pool[phys, :, row] = new.permute(0, 2, 1).reshape(bsz * steps, kvh)
     return k_pool, v_pool, k_scale_pool, v_scale_pool
 
 
@@ -432,7 +440,7 @@ def fused_qkv_paged_reference(
             views.append(view[:, :, :cap])
         return decode_attention_reference(q, *views, index), k, v
     kp, vp = scatter_paged_rows(
-        k_pool.clone(), v_pool.clone(), k, v, table, index
+        with_dump_block(k_pool), with_dump_block(v_pool), k, v, table, index
     )
     o = paged_decode_attention_reference(q, kp, vp, table, index)
     return o, k, v
