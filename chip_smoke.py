@@ -38,6 +38,29 @@ the CUDA toolkit (`nvcc`). It:
    weights from --seed), checks every request, the kernels' launch
    counts, a prefix-cache hit, and that one request re-served alone on
    a fresh engine gives the same tokens; then a profiled window (below);
+4a. serves them again with 256 new tokens each, with `loop_steps` 1 and
+   with `loop_steps` 4 (`chunk_steps` 8): the device-resident loop, each
+   fold one CUDA graph launch (chunks in conditional nodes,
+   `csrc/graph_fold.cu`) and one blocking sync; the tokens must be equal
+   and folds must run most of the decode steps; a profiled window
+   (`--window loop_serving`) must see every K1 and K2 launch the folds
+   counted and, inside each fold, exactly one graph launch, one copy
+   each way, one stream synchronize and no host kernel launch;
+4b. serves the 32-token batch with batched speculative rounds (`spec_k`
+   4, drafting pinned on) with a random `draft_config` draft and with the
+   target as its own draft, the latter also with `loop_steps` 4 (the
+   spec graph): every leg must give the same tokens and launch K2 and K1
+   at steps k+1 = 5 exactly verify rounds x layers times, the self draft
+   must emit at least 0.8 (k+1) a round; reported: tokens/s, acceptance,
+   the share of tokens equal to step 4's (bf16 verifies round apart from
+   one-step decodes at near-ties) with the first diverging positions and
+   logit gaps; an untimed second run must repeat the tokens, and K2 and
+   K1 at steps 5 are held to their plain versions on one verify call's
+   inputs; a profiled window (`--window spec_serving`, self draft, loop
+   4) must see every K1 and K2 launch and K1's combine kernel once per
+   verify round and layer; in f32 at 4 layers (and with "int8-sim" KV and
+   weights) every loop and spec leg must give the loop-off, spec-off
+   tokens exactly;
 5. generates 128 tokens for 8 prompts through `make_generate_fn` at
    TinyLlama-1.1B width (dense cache, chunks of 16 steps): 22 K7
    launches per decode step, two runs give the same tokens, tokens/s,
@@ -58,7 +81,8 @@ the CUDA toolkit (`nvcc`). It:
 6b. serves the 8 requests again with int8 KV and int8 weights (the bf16
    model's draws quantized): both int8 arms launched, 11,968 KV bytes per
    token, the share of tokens equal to the bf16 engine's, and a profiled
-   window;
+   window; then with speculative rounds, the model as its own draft (the
+   int8 arms of K2 and K1 at steps 5, held as in 4b);
 6c. in bf16 at 4 layers, "int8-sim" KV and weights give the unquantized
    engine's tokens on the fused route and on the unfused one;
 6d. holds K2's bias arm and K1 at group 1 against their plain versions
@@ -117,8 +141,8 @@ the CUDA toolkit (`nvcc`). It:
     kernel's numbers, and as the last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-Each profiled window (the decode kernels' launches, LM serving,
-generation, int8 serving, ViT serving, ViT training, LM training) runs
+Each profiled window (the decode kernels' launches, LM serving, the
+loop, generation, int8 serving, ViT serving, ViT training, LM training) runs
 in a child process of its own (`--window NAME`: the
 script starts itself once per window and fails if a child fails); the
 profiler there must see every launch of the window's sentinel kernels
@@ -133,6 +157,7 @@ exits non-zero before printing any result. Long outputs also go to
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import itertools
 import json
@@ -726,13 +751,16 @@ def _serve_timed(engine, prompts, new: int, da) -> dict:
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = dict(da.LAUNCHES)
+    at_steps = {f"{name} steps {n}": c
+                for (name, n), c in sorted(da.LAUNCHES_AT_STEPS.items())}
     dispatches = int(engine.obs.dispatches.value() - d0)
     for r in rids:
         if len(records[r]["tokens"]) != new:
             _fail(f"request {r} returned {len(records[r]['tokens'])} tokens")
     decode_steps = max(1, dispatches * engine.chunk_steps)
     return {"rids": rids, "records": records, "wall_s": wall,
-            "launches": launches, "dispatches": dispatches,
+            "launches": launches, "launches_at_steps": at_steps,
+            "dispatches": dispatches,
             "decode_steps": decode_steps,
             "decode_tokens_per_s": new * len(rids) / wall,
             "step_ms": wall / decode_steps * 1e3}
@@ -780,25 +808,31 @@ def _path_paged_kernels(da, cap: dict, what: str) -> dict:
     library call read each slot's own dense view of its table with its
     own fresh rows written in, which the kernel injects: slots parked on
     the scratch block share its rows in the pool, and each attends to
-    its own fresh row. Returns {kernel: numbers}."""
+    its own fresh row. A quantized call (int8 weight + scale row, int8
+    pools + scale pools) takes the int8 arms: the views are the
+    dequantized pools with the fresh rows at full precision, and the
+    library calls count their conversions. Returns {kernel: numbers}."""
     x, w, bias, kp, vp, table, idx = cap["args"]
     kw = cap["kwargs"]
-    if kw.get("w_scale") is not None or kw.get("k_scales") is not None:
-        _fail(f"{what}: a quantized call; this check takes the bf16 arms")
+    wsc, ks, vs = kw.get("w_scale"), kw.get("k_scales"), kw.get("v_scales")
+    if (wsc is None) != (ks is None):
+        _fail(f"{what}: int8 weights with full-precision pools, or the other way")
+    int8 = wsc is not None
     h, theta = kw["num_heads"], kw["rope_theta"]
     b, steps, dm = x.shape
     kvh, hd, dout, nlog = kp.shape[1], kp.shape[3], w.shape[1], table.shape[1]
     bf = torch.bfloat16
-    proj = dict(num_heads=h, kv_heads=kvh, rope_theta=theta)
+    proj = dict(num_heads=h, kv_heads=kvh, rope_theta=theta, w_scale=wsc)
     q, kn, vn = da.qkv_rope_reference(x, w, bias, idx, **proj)
     cap_rows = nlog * 128
     qpos = idx.long()[:, None] + torch.arange(steps, device=x.device)
     slot = torch.arange(b, device=x.device)[:, None]
 
-    def views(kp_, vp_):
+    def views(kp_, vp_, ks_=None, vs_=None):
         out = []
-        for pool, new in ((kp_, kn), (vp_, vn)):
-            view = da.gather_paged_cache(pool, table)
+        for pool, scales, new in ((kp_, ks_, kn), (vp_, vs_, vn)):
+            view = (da.dequantize_gathered(pool, scales, table, x.dtype) if int8
+                    else da.gather_paged_cache(pool, table))
             # One spare row past capacity takes the rows dropped there.
             view = torch.cat([view, view.new_zeros(b, kvh, 1, hd)], dim=2)
             view[slot, :, torch.clamp(qpos, max=cap_rows), :] = new.permute(0, 2, 1, 3)
@@ -806,47 +840,63 @@ def _path_paged_kernels(da, cap: dict, what: str) -> dict:
         return out
 
     e2 = _err(da.qkv_rope_projection(x, w, bias, idx, **proj), (q, kn, vn), bf)
-    e1 = _err([da._paged_attention_cuda(q, kp, vp, table, idx, kn, vn, None, None)],
-              [da.decode_attention_reference(q, *views(kp, vp), idx)], bf)
-    for name, (e, ratio) in (("qkv_rope", e2), ("paged_attention", e1)):
+    e1 = _err([da._paged_attention_cuda(q, kp, vp, table, idx, kn, vn, ks, vs)],
+              [da.decode_attention_reference(q, *views(kp, vp, ks, vs), idx)], bf)
+    arm = "_int8" if int8 else ""
+    for name, (e, ratio) in (("qkv_rope" + arm, e2), ("paged_attention" + arm, e1)):
         if not ratio <= 1.0:
             _fail(f"{what}: {name} {e} from its plain version, {ratio:.3g}x "
                   f"its per-slot tolerance")
     ws = [w] + [w.clone() for _ in range(ROTATE - 1)]
-    pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(ROTATE - 1)]
-    dense = [views(*pair) for pair in pools]
+    pools = [(kp, vp, ks, vs)] + [
+        tuple(None if t is None else t.clone() for t in (kp, vp, ks, vs))
+        for _ in range(ROTATE - 1)]
+    dense = [views(*four) for four in pools]
     gathered = [tuple(t.repeat_interleave(h // kvh, 1) for t in pair) for pair in dense]
     mask = (torch.arange(cap_rows, device=x.device) <= qpos[..., None])[:, None]
     vis = float(torch.clamp(qpos[:, -1] + 1, max=cap_rows).sum())
-    k1_bytes = vis * kvh * hd * 2 * 2 + 2 * b * h * steps * hd * 2 + b * nlog * 4 + b * 4
+    row_bytes = hd + 4 if int8 else hd * 2  # int8 rows carry an f32 scale
+    k1_bytes = vis * kvh * row_bytes * 2 + 2 * b * h * steps * hd * 2 + b * nlog * 4 + b * 4
     k1_flops = vis * h * steps * hd * 4
-    k2_bytes = (b * steps * dm * 2 + dm * dout * 2 + b * steps * dout * 2 + b * 4
-                + (0 if bias is None else dout * 2))
+    k2_bytes = (b * steps * dm * 2 + dm * dout * w.element_size() + b * steps * dout * 2
+                + b * 4 + (0 if bias is None else dout * 2) + (dout * 4 if int8 else 0))
     k2_flops = 2.0 * b * steps * dm * dout
 
     def k2_lib(i):
         flat = x.reshape(b * steps, dm)
-        y = flat @ ws[i % ROTATE] if bias is None else torch.addmm(bias, flat, ws[i % ROTATE])
-        da.split_qkv(y.reshape(b, steps, dout), idx, **proj)
+        wi = ws[i % ROTATE]
+        if int8:  # the conversion counted, then cuBLAS and the scale
+            y = (flat @ wi.to(x.dtype)).float() * wsc
+            y = (y if bias is None else y + bias.float()).to(x.dtype)
+        else:
+            y = flat @ wi if bias is None else torch.addmm(bias, flat, wi)
+        da.split_qkv(y.reshape(b, steps, dout), idx, num_heads=h, kv_heads=kvh,
+                     rope_theta=theta)
+
+    def k1_lib(i):
+        kv = gathered[i % ROTATE]
+        if int8:  # the dequantize counted
+            kp_, vp_, ks_, vs_ = pools[i % ROTATE]
+            kv = tuple(t.repeat_interleave(h // kvh, 1) for t in views(kp_, vp_, ks_, vs_))
+        return torch.nn.functional.scaled_dot_product_attention(q, *kv, attn_mask=mask)
 
     out = {}
     for name, (e, ratio), fn, plain, lib, nbytes, flops in (
-        ("qkv_rope", e2,
+        ("qkv_rope" + arm, e2,
          lambda i: da.qkv_rope_projection(x, ws[i % ROTATE], bias, idx, **proj),
          lambda i: da.qkv_rope_reference(x, ws[i % ROTATE], bias, idx, **proj),
          k2_lib, k2_bytes, k2_flops),
-        ("paged_attention", e1,
-         lambda i: da._paged_attention_cuda(q, *pools[i % ROTATE], table, idx, kn, vn,
-                                            None, None),
+        ("paged_attention" + arm, e1,
+         lambda i: da._paged_attention_cuda(q, *pools[i % ROTATE][:2], table, idx, kn,
+                                            vn, *pools[i % ROTATE][2:]),
          lambda i: da.decode_attention_reference(q, *dense[i % ROTATE], idx),
-         lambda i: torch.nn.functional.scaled_dot_product_attention(
-             q, *gathered[i % ROTATE], attn_mask=mask),
-         k1_bytes, k1_flops),
+         k1_lib, k1_bytes, k1_flops),
     ):
         bound_ms, bound_by = _bound(nbytes, flops)
         out[name] = {
             "inputs": what, "shape": f"b{b} steps{steps} d{dm} h{h} kvh{kvh} "
-                                     f"hd{hd} nlog{nlog} bias {bias is not None}",
+                                     f"hd{hd} nlog{nlog} bias {bias is not None}"
+                                     f"{' int8' if int8 else ''}",
             "max_abs_err": e, "err_over_tol": ratio,
             "tol": "%g * max|plain| per slot + %g" % TOL[bf],
             "ms": _timed(fn, 20), "plain_ms": _timed(plain, 5),
@@ -937,14 +987,251 @@ def serving_phase(ContinuousBatcher, LMConfig, DecoderLM, da, seed: int) -> dict
     }
 
 
-def int8_serving_phase(ContinuousBatcher, DecoderLM, da, cfg, prompts,
+# The device-resident loop's and the speculative rounds' legs (TinyLlama
+# width, the serving prompts, 8 slots, cache_len 2048). The loop leg's
+# budget lets folds do most of the decode steps (admission stays eager).
+LOOP_STEPS = 4
+LOOP_NEW = 256
+SPEC_K = 4
+SPEC_NEW = 32
+
+
+def _serve_legged(engine, prompts, new: int, da) -> dict:
+    """`_serve_timed` for an engine that folds or drafts: decode steps
+    from the engine's slot-step counter (a fold counts the steps it ran,
+    a round k+1), and the wall inside `_step_loop` (the folds: upload,
+    graph launch, download and sync each) apart."""
+    fold_wall = [0.0]
+    step_loop = engine._step_loop
+
+    def timed_loop():
+        t0 = time.monotonic()
+        step_loop()
+        fold_wall[0] += time.monotonic() - t0
+
+    engine._step_loop = timed_loop
+    total0 = engine.obs.total_steps.value()
+    verify0 = engine.obs.spec_verify.value()
+    stats0 = engine.loop_stats()
+    try:
+        run = _serve_timed(engine, prompts, new, da)
+    finally:
+        engine._step_loop = step_loop
+    steps = (engine.obs.total_steps.value() - total0) / engine.slots
+    run["decode_steps"] = steps
+    run["step_ms"] = run["wall_s"] / steps * 1e3
+    run["verify_rounds"] = int(engine.obs.spec_verify.value() - verify0)
+    stats = engine.loop_stats()
+    folded = stats["chunks_folded"] - stats0["chunks_folded"]
+    run["folds"] = stats["dispatches"] - stats0["dispatches"]
+    run["fold_wall_s"] = fold_wall[0]
+    if folded:
+        kstep = engine._k_now + 1 if engine._spec_on else engine.chunk_steps
+        run["fold_chunks_or_rounds"] = folded
+        run["folded_steps"] = folded * kstep
+        run["fold_ms_per_step"] = fold_wall[0] / (folded * kstep) * 1e3
+        run["captures"] = engine._loop.captures
+    return run
+
+
+def loop_serving_phase(ContinuousBatcher, da, model, cfg, prompts) -> dict:
+    """The serving prompts x LOOP_NEW new tokens with `loop_steps` 4
+    (`chunk_steps` 8) and, timed beside it, with `loop_steps` 1: the
+    greedy tokens must be equal, and folds must do most of the decode
+    steps. One graph launch and one sync per fold are read from the
+    profiler's trace in `--window loop_serving`."""
+    runs = {}
+    for loop in (1, LOOP_STEPS):
+        engine = ContinuousBatcher(cfg, model, loop_steps=loop, **LM_ENGINE_KW)
+        engine.warm()
+        runs[loop] = _serve_legged(engine, prompts, LOOP_NEW, da)
+        chunk_steps, loop_stats = engine.chunk_steps, engine.loop_stats()
+        del engine
+    tokens = {loop: [run["records"][r]["tokens"] for r in run["rids"]]
+              for loop, run in runs.items()}
+    if tokens[LOOP_STEPS] != tokens[1]:
+        _fail("loop serving: tokens differ from loop_steps=1")
+    run = runs[LOOP_STEPS]
+    for name in ("paged_attention", "qkv_rope"):
+        if run["launches"][name] <= 0:
+            _fail(f"loop serving: {name} was not launched")
+    share = run.get("folded_steps", 0) / run["decode_steps"]
+    if not share > 0.5:
+        _fail(f"loop serving: folds ran {share:.3f} of the decode steps, not most")
+    off = runs[1]
+    return {"loop_steps": LOOP_STEPS, "chunk_steps": chunk_steps,
+            "new_tokens_each": LOOP_NEW, **_public(run),
+            "folded_step_share": share, "loop_stats": loop_stats,
+            "loop_off": {k: off[k] for k in ("wall_s", "decode_steps", "step_ms",
+                                             "decode_tokens_per_s")},
+            "tokens_equal_loop_off": True}
+
+
+SPEC_LEGS = (("random_draft", 1), ("self_draft", 1), ("self_draft", LOOP_STEPS))
+
+
+def _first_divergence(model, prompts, got, want) -> dict:
+    """Where spec-on tokens (`got`) first part from spec-off's (`want`):
+    per request, the first differing position and the logit gap there,
+    logit[want] - logit[got], from one full forward (no cache) over the
+    prompt and the tokens both runs share. A near-tie shows as a gap
+    near the dtype's rounding."""
+    rows = []
+    for i, (p, g, w) in enumerate(zip(prompts, got, want)):
+        pos = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if pos is None:
+            continue
+        seq = torch.tensor([list(p) + w[:pos]], device=model.device)
+        with torch.inference_mode():
+            logits = model(seq)[0, -1].float()
+        rows.append({"request": i, "position": pos,
+                     "logit_gap": float(logits[w[pos]] - logits[g[pos]])})
+    return {"requests_differing": len(rows), "requests": len(want),
+            "first_position": min((r["position"] for r in rows), default=None),
+            "max_abs_logit_gap": max((abs(r["logit_gap"]) for r in rows), default=None),
+            "per_request": rows}
+
+
+def spec_serving_phase(ContinuousBatcher, lm_mod, da, model, cfg, prompts,
+                       want_tokens, seed: int, what: str, legs=SPEC_LEGS,
+                       exact: bool = False) -> dict:
+    """Batched speculative rounds, `spec_k` 4 pinned on (`spec_min_accept`
+    0), the serving prompts x SPEC_NEW new tokens, one leg per (draft,
+    loop_steps) of `legs`: a random `draft_config` draft (1 layer, 512
+    wide, 8 MHA heads) or the target as its own draft, with loop_steps 1
+    or 4 (the spec graph). Every leg's verifies run the same shapes
+    (k fixed), so every leg must give the first leg's tokens; each must
+    launch K2 and K1 at steps k+1 exactly verify rounds x layers times
+    (the wrappers' count by steps), and a self draft must emit close to
+    k+1 tokens a round. `exact` (f32): the tokens must also equal
+    `want_tokens` (spec off, same model and prompts). Else (bf16, int8):
+    a verify over k+1 positions runs its GEMMs and kernels at other
+    shapes than a one-step decode, which round apart, so tokens may part
+    at a near-tie; where they first part and the logit gap there are
+    reported. Then an untimed second run of the first leg must repeat its
+    tokens, and K2 and K1 at steps k+1 are held to their plain versions
+    on the inputs of one of its verify calls."""
+    dcfg = lm_mod.draft_config(cfg)
+    drafts = {
+        "random_draft": (dcfg, lm_mod.DecoderLM(dcfg, device=model.device, seed=seed + 5)),
+        "self_draft": (cfg, model),
+    }
+    arms = {"qkv_rope": "_int8" if cfg.w_quant == "int8" else "",
+            "paged_attention": "_int8" if cfg.kv_quant == "int8" else ""}
+    n_tok = SPEC_NEW * len(prompts)
+    out, first = {}, None
+    for name, loop in legs:
+        d_cfg, d_model = drafts[name]
+        kw = dict(LM_ENGINE_KW, spec=True, spec_k=SPEC_K, spec_min_accept=0.0,
+                  draft_cfg=d_cfg, draft_params=d_model, loop_steps=loop)
+        engine = ContinuousBatcher(cfg, model, **kw)
+        engine.warm()
+        run = _serve_legged(engine, prompts, SPEC_NEW, da)
+        tokens = [run["records"][r]["tokens"] for r in run["rids"]]
+        same = sum(a == b for t, u in zip(tokens, want_tokens) for a, b in zip(t, u))
+        want_launches = run["verify_rounds"] * cfg.num_layers
+        verify = {k: run["launches_at_steps"].get(f"{k}{arm} steps {SPEC_K + 1}", 0)
+                  for k, arm in arms.items()}
+        leg = {"loop_steps": loop, **_public(run), "spec_stats": engine.spec_stats(),
+               "verify_launches": verify,
+               "tokens_equal_spec_off_share": same / n_tok}
+        engine_graphs = sorted(engine._loop._graphs) if loop > 1 else []
+        if loop > 1:
+            leg["loop_stats"] = engine.loop_stats()
+        out[f"{name}_loop{loop}"] = leg
+        del engine
+        tag = f"{what} {name} loop {loop}"
+        stats = leg["spec_stats"]
+        if stats["k"] != SPEC_K or stats["drafting_disabled"] or (
+                loop > 1 and SPEC_K not in engine_graphs):
+            _fail(f"{tag}: k {stats['k']}, drafting disabled "
+                  f"{stats['drafting_disabled']}, fold graphs {engine_graphs}")
+        if any(n != want_launches for n in verify.values()):
+            _fail(f"{tag}: K2/K1 at steps {SPEC_K + 1} launched {verify}, not "
+                  f"{run['verify_rounds']} verify rounds x {cfg.num_layers} layers")
+        if first is None:
+            first = tokens
+        elif tokens != first:
+            div = _first_divergence(model, prompts, tokens, first)
+            _fail(f"{tag}: tokens differ from the {legs[0][0]} leg's: {div}")
+        if exact and tokens != want_tokens:
+            _fail(f"{tag}: tokens differ from spec off ({same} of {n_tok} equal)")
+        emitted = leg["spec_stats"]["emitted_per_round"]
+        floor = (0.9 if exact else 0.8) * (SPEC_K + 1)
+        if name == "self_draft" and not emitted >= floor:
+            _fail(f"{tag}: the self draft emitted {emitted} a round, under "
+                  f"{floor} (k+1 = {SPEC_K + 1})")
+    out["tokens_equal_across_legs"] = True
+    if exact:
+        return out
+    out["divergence_from_spec_off"] = _first_divergence(model, prompts, first,
+                                                        want_tokens)
+    # An untimed second run of the first leg: its tokens again, and the
+    # inputs of layer 0's K2 + K1 call in the fourth verify round.
+    d_cfg, d_model = drafts[legs[0][0]]
+    engine = ContinuousBatcher(cfg, model, **LM_ENGINE_KW, spec=True, spec_k=SPEC_K,
+                               spec_min_accept=0.0, draft_cfg=d_cfg,
+                               draft_params=d_model, loop_steps=legs[0][1])
+    engine.warm()
+    cap = {}
+    with _captured(lm_mod, "fused_qkv_paged_attention", 3 * cfg.num_layers, cap,
+                   steps=SPEC_K + 1):
+        rids = [engine.submit(p, max_new_tokens=SPEC_NEW) for p in prompts]
+        res = engine.run()
+    if [res[r] for r in rids] != first:
+        _fail(f"{what}: a second run of the first leg gave other tokens")
+    out["kernels"] = _path_paged_kernels(da, cap, f"{what} verify, steps {SPEC_K + 1}")
+    del engine
+    return out
+
+
+def spec_exactness_phase(ContinuousBatcher, lm_mod, da, cfg, prompts,
+                         seed: int) -> dict:
+    """TinyLlama width, 4 layers, f32 (where a verify and a one-step
+    decode round alike): `loop_steps` 4 and every speculative leg must
+    give the spec-off, loop-off tokens; then the same with "int8-sim" KV
+    and weights (unit scales: every scale path, lossless), self-drafted.
+    Real int8 is left out: a verify reads its own fresh rows at full
+    precision (K1 injects them; they quantize at the scatter after),
+    where a one-step decode reads the earlier ones quantized, so int8
+    spec-on and spec-off differ by design, in JAX's kernel route too."""
+    import dataclasses
+
+    out = {"layers": 4, "dtype": "float32"}
+    for kind in ("model", "int8-sim"):
+        cfg32 = dataclasses.replace(cfg, num_layers=4, dtype="float32",
+                                    kv_dtype=kind, w_dtype=kind)
+        model = lm_mod.DecoderLM(cfg32, device="cuda", seed=seed + 6)
+        want = None
+        for loop in (1, LOOP_STEPS):
+            engine = ContinuousBatcher(cfg32, model, loop_steps=loop, **LM_ENGINE_KW)
+            rids = [engine.submit(p, max_new_tokens=32) for p in prompts]
+            res = engine.run()
+            tokens = [res[r] for r in rids]
+            want = tokens if want is None else want
+            if tokens != want:
+                _fail(f"f32 {kind}: loop_steps {loop} gave other tokens than 1")
+        legs = SPEC_LEGS if kind == "model" else (("self_draft", 1),
+                                                  ("self_draft", LOOP_STEPS))
+        out[kind] = spec_serving_phase(
+            ContinuousBatcher, lm_mod, da, model, cfg32, prompts, want, seed,
+            f"f32 {kind} spec", legs=legs, exact=True)
+        del model
+        torch.cuda.empty_cache()
+    out["identical"] = True
+    return out
+
+
+def int8_serving_phase(ContinuousBatcher, DecoderLM, lm_mod, da, cfg, prompts,
                        bf16_tokens, seed: int) -> dict:
     """The paged engine with int8 KV and int8 weights at TinyLlama-1.1B
     width: the weights are the bf16 serving model's draws (same seed),
     quantized per output channel; 8 slots, cache_len 2048, the serving
     phase's 8 requests x 32 new tokens. Checks every request, launches of
     both int8 arms and of neither full-precision arm, and 11,968 KV bytes
-    per token; reports the share of tokens equal to the bf16 engine's."""
+    per token; reports the share of tokens equal to the bf16 engine's.
+    Then the int8 leg of the speculative rounds (`spec_serving_phase`),
+    held to these tokens."""
     import dataclasses
 
     cfg8 = dataclasses.replace(cfg, kv_dtype="int8", w_dtype="int8")
@@ -982,7 +1269,12 @@ def int8_serving_phase(ContinuousBatcher, DecoderLM, da, cfg, prompts,
         "kv_backing_bytes": engine.kv_stats()["kv_backing_bytes"],
         "tokens_equal_to_bf16_share": agree / (new * len(rids)),
     }
-    del model, engine
+    del engine
+    # The int8 arms of K2 and K1 at steps k+1: the model as its own draft.
+    out["spec_serving"] = spec_serving_phase(
+        ContinuousBatcher, lm_mod, da, model, cfg8, prompts, tokens, seed,
+        "int8 spec serving", legs=(("self_draft", 1),))
+    del model
     torch.cuda.empty_cache()
     return out
 
@@ -1377,6 +1669,155 @@ def window_lm_serving(seed: int, quant: str | None = None) -> dict:
         {"paged_attention" + arm: "decode_mma_kernel",
          "qkv_rope" + arm: "qkv_mma_kernel"},
     )
+
+
+def _in_ranges(events, ranges) -> list:
+    """Per range (start, end) of `ranges`, sorted: the events of `events`
+    that start inside it."""
+    starts = sorted(e.time_range.start for e in events)
+    return [bisect.bisect_right(starts, b) - bisect.bisect_left(starts, a)
+            for a, b in ranges]
+
+
+def window_loop_serving(seed: int) -> dict:
+    """4 of the serving prompts x LOOP_NEW new tokens through a warmed
+    paged engine with `loop_steps` 4, CPU and CUDA activity, each
+    `_step_loop` under a profiler range "fold". The profiler must see as
+    many K1 and K2 launches as the wrappers counted (at capture) and the
+    folds added at each replay; and inside each fold's range exactly one
+    graph launch (`cudaGraphLaunch`), one host->device copy (the table and
+    exit inputs), one device->host copy (the outputs), one stream
+    synchronize and no kernel launched from the host. Reports the
+    device-busy share of the window and of the folds' ranges."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from walkai_nos_tpu_torch.models.lm import DecoderLM, LMConfig
+    from walkai_nos_tpu_torch.models.serve import ContinuousBatcher
+    from walkai_nos_tpu_torch.ops import decode_attention as da
+
+    cfg = _tinyllama_cfg(LMConfig)
+    engine = ContinuousBatcher(cfg, DecoderLM(cfg, device="cuda", seed=seed),
+                               loop_steps=LOOP_STEPS, **LM_ENGINE_KW)
+    engine.warm()
+    rids = [engine.submit(p, max_new_tokens=LOOP_NEW)
+            for p in _serving_prompts(cfg, seed)[:4]]
+    step_loop = engine._step_loop
+    captured = []  # per fold: whether it captured its graph (not replayed)
+
+    def ranged():
+        before = engine._loop.captures
+        with record_function("fold"):
+            step_loop()
+        captured.append(engine._loop.captures != before)
+
+    engine._step_loop = ranged
+    folds0 = engine.loop_stats()["dispatches"]
+    da.reset_launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        out = engine.run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    engine._step_loop = step_loop
+    if any(len(out[r]) != LOOP_NEW for r in rids):
+        _fail("profiled window: a request came back short")
+    summary = _profile_summary(
+        prof, wall, "loop_profile.txt", da.LAUNCHES,
+        {"paged_attention": "decode_mma_kernel", "qkv_rope": "qkv_mma_kernel"},
+    )
+    folds = engine.loop_stats()["dispatches"] - folds0
+    events = prof.events()
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    ranges = sorted((e.time_range.start, e.time_range.end)
+                    for e in host if e.name == "fold")
+    if len(ranges) != folds or folds < 1:
+        _fail(f"profiled window: {len(ranges)} fold ranges for {folds} folds")
+    kinds = {
+        "graph_launches": [e for e in host if e.name.startswith("cudaGraphLaunch")],
+        "stream_syncs": [e for e in host if e.name.startswith("cudaStreamSynchronize")],
+        "host_kernel_launches": [e for e in host if e.name.startswith(
+            ("cudaLaunchKernel", "cuLaunchKernel"))],
+        "copies_to_device": [e for e in device if e.name.startswith("Memcpy HtoD")],
+        "copies_to_host": [e for e in device if e.name.startswith("Memcpy DtoH")],
+    }
+    # A fold that captures its graph first records its kernels through
+    # the host; the others only replay.
+    per_fold = {k: [c for c, cap in zip(_in_ranges(v, ranges), captured) if not cap]
+                for k, v in kinds.items()}
+    want = {k: 0 if k == "host_kernel_launches" else 1 for k in kinds}
+    if not per_fold["graph_launches"]:
+        _fail("profiled window: every fold captured, none only replayed")
+    for k, counts in per_fold.items():
+        if any(c != want[k] for c in counts):
+            _fail(f"profiled window: {k} per fold {counts}, want {want[k]} each")
+    fold_s = sum(b - a for a, b in ranges) / 1e6
+    starts = [(e.time_range.start, e.time_range.end - e.time_range.start)
+              for e in device]
+    busy = sum(d for t, d in starts if any(a <= t <= b for a, b in ranges)) / 1e6
+    summary.update({
+        "folds": folds, "folds_capturing": sum(captured),
+        "per_fold": {k: want[k] for k in kinds},
+        "fold_wall_s": fold_s, "fold_device_s": busy,
+        "fold_device_busy_share": busy / fold_s if fold_s else None,
+    })
+    return summary
+
+
+def window_spec_serving(seed: int) -> dict:
+    """The target as its own draft, `spec_k` 4 pinned on, `loop_steps` 4:
+    4 of the serving prompts x SPEC_NEW new tokens, admission in eager
+    rounds, then the spec graph's folds. The profiler must see as many K1
+    and K2 launches as the wrappers counted (eager, and at capture times
+    the rounds each replay ran), and as many launches of K1's combine
+    kernel as K1 and K2 calls at steps k+1 counted and as verify rounds x
+    layers: at this shape only a multi-step K1 call launches it (a
+    one-step call's last CTA of each cell combines), so the device shows
+    the verify's K1 calls apart from the draft's."""
+    from walkai_nos_tpu_torch.models.lm import DecoderLM, LMConfig
+    from walkai_nos_tpu_torch.models.serve import ContinuousBatcher
+    from walkai_nos_tpu_torch.ops import decode_attention as da
+
+    cfg = _tinyllama_cfg(LMConfig)
+    model = DecoderLM(cfg, device="cuda", seed=seed)
+    engine = ContinuousBatcher(cfg, model, loop_steps=LOOP_STEPS, spec=True,
+                               spec_k=SPEC_K, spec_min_accept=0.0, draft_cfg=cfg,
+                               draft_params=model, **LM_ENGINE_KW)
+    engine.warm()
+    rids = [engine.submit(p, max_new_tokens=SPEC_NEW)
+            for p in _serving_prompts(cfg, seed)[:4]]
+    folds0 = engine.loop_stats()["dispatches"]
+    rounds0 = engine.obs.spec_verify.value()
+    da.reset_launch_counts()
+    prof, wall, out = _profiled(engine.run)
+    if any(len(out[r]) != SPEC_NEW for r in rids):
+        _fail("profiled window: a request came back short")
+    summary = _profile_summary(
+        prof, wall, "spec_profile.txt", da.LAUNCHES,
+        {"paged_attention": "decode_mma_kernel", "qkv_rope": "qkv_mma_kernel"},
+    )
+    rounds = int(engine.obs.spec_verify.value() - rounds0)
+    folds = engine.loop_stats()["dispatches"] - folds0
+    counts = _kernel_counts(_device_rows(prof.key_averages()))
+    combine = sum(c[0] for name, c in counts.items()
+                  if name.split("<")[0] == "decode_combine_kernel")
+    verify = {name: da.LAUNCHES_AT_STEPS.get((name, SPEC_K + 1), 0)
+              for name in ("paged_attention", "qkv_rope")}
+    want = rounds * cfg.num_layers
+    if rounds < 1 or SPEC_K not in engine._loop._graphs or not engine._spec_on:
+        _fail(f"profiled window: {rounds} verify rounds, spec graphs for k in "
+              f"{sorted(engine._loop._graphs)}, drafting on {engine._spec_on}")
+    if folds < 1 or not (combine == want and all(n == want for n in verify.values())):
+        _fail(f"profiled window: {folds} folds; {rounds} verify rounds x "
+              f"{cfg.num_layers} layers = {want}; K1's combine kernel seen "
+              f"{combine} times, steps-{SPEC_K + 1} calls counted {verify}")
+    summary.update({"folds": folds, "verify_rounds": rounds,
+                    "verify_launches_counted": verify,
+                    "k1_combine_launches_seen": combine})
+    return summary
 
 
 def window_generate(seed: int) -> dict:
@@ -2904,6 +3345,8 @@ WINDOWS = {
     "vit_training": window_vit_training,
     "lm_training": window_lm_training,
     "lm_serving_moe": window_lm_serving_moe,
+    "loop_serving": window_loop_serving,
+    "spec_serving": window_spec_serving,
 }
 
 
@@ -3314,6 +3757,32 @@ def main() -> int:
     serve["profile"] = run_window("lm_serving", args.seed)
     print(json.dumps({"serving": serve}), flush=True)
     phase_end_s['lm_serving'] = time.monotonic() - start
+    loop_serve = loop_serving_phase(ContinuousBatcher, da, model, cfg, serve_prompts)
+    loop_serve["profile"] = window = run_window("loop_serving", args.seed)
+    print(json.dumps({"loop_serving": loop_serve}), flush=True)
+    print(f"Loop serving on {smi}: {loop_serve['step_ms']:.2f} ms a step "
+          f"({loop_serve['loop_off']['step_ms']:.2f} with loop_steps 1), "
+          f"{loop_serve['fold_ms_per_step']:.3f} ms a folded step over "
+          f"{loop_serve['folds']} folds ({loop_serve['folded_step_share']:.3f} of "
+          f"the steps); window: {window['folds']} folds, each one graph launch "
+          f"and one sync, busy {window['device_busy_share']:.3f} "
+          f"(folds {window['fold_device_busy_share']:.3f})", flush=True)
+    phase_end_s['loop_serving'] = time.monotonic() - start
+    spec_serve = spec_serving_phase(ContinuousBatcher, lm_mod, da, model, cfg,
+                                    serve_prompts, serve_tokens, args.seed,
+                                    "spec serving")
+    spec_serve["profile"] = window = run_window("spec_serving", args.seed)
+    print(json.dumps({"spec_serving": spec_serve}), flush=True)
+    for name, leg in spec_serve.items():
+        if isinstance(leg, dict) and "spec_stats" in leg:
+            print(f"Spec serving {name} on {smi}: {leg['decode_tokens_per_s']:.2f} "
+                  f"tokens/s, {leg['spec_stats']['emitted_per_round']} emitted a "
+                  f"round, K2/K1 at steps {SPEC_K + 1} {leg['verify_launches']}, "
+                  f"{leg['tokens_equal_spec_off_share']:.3f} of tokens equal to "
+                  f"spec off", flush=True)
+    print(f"Spec window on {smi}: {window['verify_rounds']} verify rounds, K1's "
+          f"combine kernel seen {window['k1_combine_launches_seen']} times", flush=True)
+    phase_end_s['spec_serving'] = time.monotonic() - start
     generate = generate_phase(make_generate_fn, da, model, cfg, args.seed)
     gen_prompts = generate.pop("_prompts")
     generate["profile"] = run_window("generate", args.seed)
@@ -3333,10 +3802,14 @@ def main() -> int:
                             da, cfg, serve_prompts, args.seed)
     print(json.dumps({"exactness_f32": exact}), flush=True)
     phase_end_s['exactness_f32'] = time.monotonic() - start
+    spec_exact = spec_exactness_phase(ContinuousBatcher, lm_mod, da, cfg,
+                                      serve_prompts, args.seed)
+    print(json.dumps({"spec_exactness_f32": spec_exact}), flush=True)
+    phase_end_s['spec_exactness_f32'] = time.monotonic() - start
     unfused = unfused_phase(ContinuousBatcher, DecoderLM, da, cfg, args.seed)
     print(json.dumps({"unfused": unfused}), flush=True)
     phase_end_s['unfused'] = time.monotonic() - start
-    int8_serve = int8_serving_phase(ContinuousBatcher, DecoderLM, da, cfg,
+    int8_serve = int8_serving_phase(ContinuousBatcher, DecoderLM, lm_mod, da, cfg,
                                     serve_prompts, serve_tokens, args.seed)
     int8_serve["quant_dense"] = quant_dense
     int8_serve["profile"] = run_window("int8_serving", args.seed)
@@ -3509,6 +3982,35 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+    # The device-resident loop runs K2 + K1 at the serving path's steps 1
+    # (times of the kernel phase), launched by its graphs' replays; the
+    # speculative legs at steps k+1 on a verify's own inputs, their
+    # launches the wrappers' count at steps k+1 in the first leg (bf16
+    # and int8).
+    for name in ("paged_attention", "qkv_rope"):
+        source, replaces = decode_sites[name]
+        t = next(r for r in rows if r["kernel"] == name and r["steps"] == 1)
+        kernels.append({
+            "name": f"{name}_loop", "route": "cuda", "source": f"{src}{source}",
+            "replaces": replaces, "launches": loop_serve["launches"][name],
+            "max_abs_err": next(k["max_abs_err"] for k in kernels if k["name"] == name),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
+    for arm, spec in (("", spec_serve), ("_int8", int8_serve["spec_serving"])):
+        first = next(leg for leg in spec.values()
+                     if isinstance(leg, dict) and "verify_launches" in leg)
+        for name in ("paged_attention", "qkv_rope"):
+            source, replaces = decode_sites[name]
+            t = spec["kernels"][name + arm]
+            kernels.append({
+                "name": f"{name}{arm}_spec_verify", "route": "cuda",
+                "source": f"{src}{source}", "replaces": replaces,
+                "launches": first["verify_launches"][name],
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            })
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({
@@ -3517,8 +4019,10 @@ def main() -> int:
             "decode_launches": decode_launches,
             "timing": rows + grows + vrows,
             "hf_llama": hf_llama, "hf_gpt2": hf_gpt2, "moe_serving": moe,
-            "serving": serve, "generate": generate, "speculative": speculative,
+            "serving": serve, "loop_serving": loop_serve, "spec_serving": spec_serve,
+            "generate": generate, "speculative": speculative,
             "dense_serving": dense_serve, "exactness_f32": exact,
+            "spec_exactness_f32": spec_exact,
             "unfused": unfused, "int8_serving": int8_serve,
             "sim_exactness": sim_exact, "vit_serving": vit_serve,
             "vit_training": vit_train, "lm_training": lm_train, "kernels": kernels,

@@ -187,16 +187,44 @@ def test_pool_overflow_rejected(served):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(spec=True), dict(loop_steps=2),
         # The dense engine is ported; its later-slice features are not.
         dict(paged=False, capture="/nonexistent"),
         dict(sp_prefill=True), dict(capture="/nonexistent"),
         dict(adapters=object()),
         # Options of those features: set, they raise rather than sit inert.
-        dict(prompt_bucket=32), dict(sp_min_tokens=96), dict(spec_k=2),
-        dict(draft_params={}), dict(slo_window_s=5.0),
+        dict(prompt_bucket=32), dict(sp_min_tokens=96),
+        dict(slo_window_s=5.0),
     ],
 )
 def test_later_slice_features_raise(served, kwargs):
     with pytest.raises(NotImplementedError):
         _port(served, **kwargs)
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        dict(loop_steps=2, paged=False),
+        dict(spec=True),
+        dict(spec=True, spec_k=8, draft=True),
+        dict(spec=True, paged=False, draft=True),
+    ],
+    ids=["loop-dense", "spec-no-draft", "spec_k-8", "spec-dense"],
+)
+def test_loop_and_spec_options_raise_the_jax_errors(served, kwargs):
+    """The device-resident loop and speculative rounds are ported: their
+    invalid settings raise the JAX engine's ValueError, word for word."""
+    kwargs = dict(kwargs)
+    if kwargs.pop("draft", False):
+        kwargs.update(draft_cfg=jlm.LMConfig(**FIELDS),
+                      draft_params=served["params"])
+    jkw = dict(kwargs)
+    if "draft_cfg" in kwargs:
+        kwargs["draft_cfg"] = tlm.LMConfig(**FIELDS)
+    with pytest.raises(ValueError) as want:
+        JaxBatcher(jlm.LMConfig(**FIELDS), served["params"], **ENGINE, **jkw)
+    with pytest.raises(ValueError) as got:
+        _port(served, **kwargs)
+    assert str(got.value) == str(want.value)
+    # JAX ignores the speculative options while `spec` is off.
+    _port(served, spec_k=2, draft_params={})

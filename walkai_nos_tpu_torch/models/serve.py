@@ -29,17 +29,31 @@ leave at EOS or their budget, without stopping the batch.
   decode kernel's per-row arm.
 - **Pipelined stepping**: the host keeps one chunk in flight and reads
   the previous chunk's tokens while the device computes the next.
+- **Device-resident loop** (`loop_steps` > 1, paged only): with no
+  admission pending, one dispatch folds up to `loop_steps` decode chunks
+  (or speculative rounds) and exits on the first condition the host must
+  see (`models/serve_graph.py`: a CUDA graph on the card, one replay and
+  one sync a fold). `loop_stats()` reports the folds.
+- **Speculative rounds** (`spec=True`, paged only): a draft model with
+  its own paged pool of the same block count (one physical block id
+  names a (target, draft) pair, so the host keeps one set of books)
+  proposes `spec_k` tokens per slot, the target verifies them in one
+  forward of k+1 positions, and each slot commits its accepted prefix
+  plus the target's next token (`serve_lane.spec_round`). Rounds are
+  synchronous; an acceptance controller halves k, then turns drafting
+  off for the engine's lifetime. `spec_stats()` reports them.
 - **Quantized storage** (`LMConfig.kv_dtype` / `w_dtype`, "int8" or
   "int8-sim"): int8 paged pools with per-row f32 scale pools (paged mode
   only), and int8 projection weights with per-output-channel scales. A
   flax tree is quantized at build (`quantize_lm_params`, on the engine's
-  own copy; idempotent); a `DecoderLM` must already be built for the
-  config. `quant_stats()` reports what the knobs did.
+  own copy; idempotent), the draft's too; a `DecoderLM` must already be
+  built for the config. `quant_stats()` reports what the knobs did.
 
 What differs from the JAX engine, and why:
 
-- Device programs run eagerly (PyTorch) instead of under `jit`; the
-  pools are written in place where JAX donates buffers.
+- Device programs run eagerly (PyTorch) instead of under `jit`, except
+  the folds of the device-resident loop (CUDA graphs); the pools are
+  written in place where JAX donates buffers.
 - Every device program's shapes are fixed by `slots`, `prefill_lanes`
   and `prefill_chunk`: the lane always runs `prefill_lanes` rows over
   the full table width (JAX rounds both to powers of two); a dense
@@ -50,18 +64,16 @@ What differs from the JAX engine, and why:
   engine's defining invariant (ARCHITECTURE.md, capture & replay). An
   MoE layer routes the tokens JAX's call routes (the lane's first
   `rows`, a power of two of the rows in use; every slot in a decode
-  step), so under capacity drops a row depends on the batch in both
-  engines, as in JAX's.
+  step or a verify), so under capacity drops a row depends on the batch
+  in both engines, as in JAX's.
 - Sampled streams are counter-based (`models/decode.py`), not JAX's
   threefry bits; greedy streams match the JAX engine token for token.
 - The engine's features of later slices raise NotImplementedError at
-  construction: `spec`, `loop_steps > 1`, `adapters`, `sp_prefill`,
-  `capture`, and the `obs` telemetry planes, as does any of their
-  options (`sp_*`, `spec_*`, `draft_*`, `slo_*`) set to other than its
-  JAX default, and `prompt_bucket` in paged mode, where it does nothing
-  (the engine
-  keeps only the counters `occupancy()`, `kv_stats()` and
-  `prefix_stats()` read, `models/serve_stats.py`).
+  construction: `adapters`, `sp_prefill`, `capture`, and the `obs`
+  telemetry planes, as does any of their options (`sp_*`, `slo_*`) set
+  to other than its JAX default, and `prompt_bucket` in paged mode,
+  where it does nothing (the engine keeps only the counters its stats
+  views read, `models/serve_stats.py`).
 """
 
 from __future__ import annotations
@@ -83,17 +95,20 @@ from walkai_nos_tpu_torch.models.lm import (
     quantize_lm_params,
 )
 from walkai_nos_tpu_torch.models.prefix_cache import PrefixIndex
+from walkai_nos_tpu_torch.models.serve_graph import LOOP_EXITS, DecodeLoop
 from walkai_nos_tpu_torch.models.serve_lane import (
     SlotState,
     _Prefill,
     _Request,
     admit_dense,
     decode_chunk,
+    mirror_lane,
     run_lane,
+    spec_round,
     to_device,
 )
 from walkai_nos_tpu_torch.models.serve_stats import EngineStats
-from walkai_nos_tpu_torch.ops.decode_attention import PAGE_ROWS
+from walkai_nos_tpu_torch.ops.decode_attention import MAX_KERNEL_STEPS, PAGE_ROWS
 
 __all__ = ["ContinuousBatcher"]
 
@@ -150,8 +165,6 @@ class ContinuousBatcher:
         device=None,
     ) -> None:
         for on, what, item in (
-            (loop_steps > 1, "loop_steps > 1", "loop_steps (CUDA graph)"),
-            (spec, "spec=True", "speculative decoding"),
             (adapters is not None, "adapters", "LoRA"),
             (sp_prefill, "sp_prefill=True", "sp_prefill"),
             (capture is not None, "capture", "capture"),
@@ -164,15 +177,17 @@ class ContinuousBatcher:
              "engine features"),
             ((sp_min_tokens, sp_span) != (2048, 0), "the sp_prefill options",
              "sp_prefill"),
-            (spec_k != 4 or draft_cfg is not None or draft_params is not None
-             or (spec_min_accept, spec_warmup_rounds, spec_ema_alpha)
-             != (0.35, 16, 0.25), "the speculative-decoding options",
-             "speculative decoding"),
         ):
             if on:
                 raise _not_ported(what, item)
         if loop_steps < 1:
             raise ValueError(f"loop_steps must be >= 1; got {loop_steps}")
+        if loop_steps > 1 and not paged:
+            raise ValueError(
+                "loop_steps > 1 requires the paged engine (the "
+                "device-resident loop pre-backs per-slot block tables "
+                "to its horizon; the dense cache has no table)"
+            )
         if cfg.kv_dtype != "model" and not paged:
             raise ValueError(
                 f"kv_dtype={cfg.kv_dtype!r} requires the paged engine "
@@ -189,6 +204,7 @@ class ContinuousBatcher:
         self.cache_len = cache_len
         self.prompt_bucket = prompt_bucket
         self.chunk_steps = chunk_steps
+        self.loop_steps = loop_steps
         self.paged = paged
         self._nlog = -(-cache_len // PAGE_ROWS)
         self.obs = EngineStats()
@@ -219,11 +235,59 @@ class ContinuousBatcher:
                 cfg, ragged_decode=True, cache_len=cache_len
             )
             self.pool = None
+        # Speculative serving (paged only): the draft holds its own paged
+        # pool with the same block count, addressed through the same
+        # host tables.
+        self._spec = bool(spec)
+        if self._spec:
+            if not paged:
+                raise ValueError(
+                    "spec=True requires the paged engine (per-slot "
+                    "write heads are what make variable-length "
+                    "acceptance per row possible)"
+                )
+            if draft_cfg is None or draft_params is None:
+                raise ValueError(
+                    "spec=True needs draft_cfg and draft_params "
+                    "(models/lm.py:draft_config builds a compatible one)"
+                )
+            if not 1 <= spec_k <= MAX_KERNEL_STEPS - 1:
+                raise ValueError(
+                    f"spec_k must be in [1, {MAX_KERNEL_STEPS - 1}] "
+                    f"(k+1 verify positions ride the multi-step decode "
+                    f"kernel); got {spec_k}"
+                )
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    "target and draft must share a vocabulary "
+                    f"({cfg.vocab_size} != {draft_cfg.vocab_size})"
+                )
+            if draft_cfg.max_seq_len < cache_len:
+                raise ValueError(
+                    f"draft max_seq_len {draft_cfg.max_seq_len} is "
+                    f"shorter than cache_len {cache_len}: the draft "
+                    f"cache tracks the target's positions row for row"
+                )
+            self._draft_cfg = dataclasses.replace(
+                draft_cfg, ragged_decode=True, cache_len=cache_len,
+                paged_decode=True, paged_blocks=self.pool_blocks,
+                tp_devices=1,
+            )
+        self._spec_k = spec_k
+        self._k_now = spec_k
+        self._spec_on = self._spec  # the controller may turn it off, once
+        self._spec_min_accept = spec_min_accept
+        self._spec_warmup = max(1, spec_warmup_rounds)
+        self._spec_alpha = spec_ema_alpha
+        self._spec_ema: float | None = None
+        self._spec_rounds_seen = 0
         # Weight quantization: a flax tree transforms once, here, into a
         # new tree (the caller's is left alone).
         t_quant = time.monotonic()
         if isinstance(params, Mapping):
             params = quantize_lm_params(params, self.cfg)
+        if self._spec and isinstance(draft_params, Mapping):
+            draft_params = quantize_lm_params(draft_params, self._draft_cfg)
         self._quant_seconds = time.monotonic() - t_quant
         self.model = DecoderLM.from_params(self.cfg, params, device)
         self.device = self.model.device
@@ -232,6 +296,25 @@ class ContinuousBatcher:
             else DenseCache.zeros(self.cfg, slots, self.device)
         )
         self._state = SlotState.zeros(cache, slots, self.device)
+        self._draft = self._d_cache = None
+        if self._spec:
+            self._draft = DecoderLM.from_params(
+                self._draft_cfg, draft_params, self.device
+            )
+            self._d_cache = PagedCache.zeros(self._draft_cfg, self.device)
+            self.obs.spec_k_gauge.set(spec_k)
+            self.obs.spec_disabled.set(0)
+        self._loop = None
+        if loop_steps > 1:
+            self._loop = DecodeLoop(
+                self.model, self._state, slots=slots, nlog=self._nlog,
+                loop_steps=loop_steps, chunk_steps=chunk_steps,
+                draft=self._draft, d_cache=self._d_cache,
+                spec_k=spec_k if self._spec else 0,
+            )
+        # Trailing run averages behind the cb_loop_steps_per_sync gauge.
+        self._loop_sync_n = 0
+        self._loop_steps_acc = 0
         self._requests: dict[int, _Request] = {}
         self._draining = False
         self._pending: deque[_Request] = deque()
@@ -313,6 +396,19 @@ class ContinuousBatcher:
                 f"prompt + max_new_tokens = {total} exceeds cache_len "
                 f"{self.cache_len}",
             )
+        if self._spec_on:
+            # A verify window reaches spec_k positions past the last
+            # committed token; they must stay inside both models'
+            # positional range. Gated on the live controller state: once
+            # drafting is off no verify runs again.
+            limit = min(self.cfg.max_seq_len, self._draft_cfg.max_seq_len)
+            if total + self._spec_k > limit:
+                raise self._reject(
+                    "oversize_reject",
+                    f"prompt + max_new_tokens = {total} + spec_k "
+                    f"{self._spec_k} lookahead exceeds max_seq_len "
+                    f"{limit}",
+                )
         if self.paged:
             need = self.pool.blocks_needed(len(prompt), max_new_tokens)
             if need > self.pool_blocks - 1:
@@ -340,19 +436,39 @@ class ContinuousBatcher:
 
     # -- driving -------------------------------------------------------------
 
-    def step(self) -> bool:
+    def step(self, *, allow_loop: bool = True) -> bool:
         """One pipeline turn: admit, dispatch a chunk, then process the
         PREVIOUS chunk's tokens (its host copy overlaps the chunk just
-        dispatched). True while work remains."""
+        dispatched). True while work remains.
+
+        With `loop_steps` > 1 and no admission pending (empty queue and
+        prefill lane), the turn folds up to `loop_steps` chunks or
+        speculative rounds into one device-resident dispatch instead
+        (`_step_loop`, synchronous); `allow_loop=False` keeps the turn on
+        the per-chunk path (a streaming consumer sees tokens per chunk).
+        While drafting is on, a turn is one synchronous speculative round
+        (`_dispatch_spec` + `_process_spec`). A synchronous turn first
+        drains the chunk in flight."""
         t0 = time.monotonic()
         if self.paged:
             self._admit_paged()
         else:
             self._admit_dense()
         self.obs.stall.inc(time.monotonic() - t0)
-        has_live = any(r is not None for r in self._slot_req) or bool(
-            self._prefilling
-        )
+        live_any = any(r is not None for r in self._slot_req)
+        has_live = live_any or bool(self._prefilling)
+        if (
+            allow_loop and self.loop_steps > 1 and live_any
+            and not self._prefilling and not self._pending
+        ):
+            self._drain_inflight()
+            if any(r is not None for r in self._slot_req):
+                self._step_loop()
+            return self.has_work
+        if self._spec_on and has_live:
+            self._drain_inflight()
+            self._process_spec(*self._dispatch_spec())
+            return True
         handle = self._dispatch() if has_live else None
         if self._inflight is not None:
             self._process(*self._inflight)
@@ -360,6 +476,11 @@ class ContinuousBatcher:
         if handle is None:
             return bool(self._pending)
         return True
+
+    def _drain_inflight(self) -> None:
+        if self._inflight is not None:
+            self._process(*self._inflight)
+            self._inflight = None
 
     @property
     def has_work(self) -> bool:
@@ -536,6 +657,61 @@ class ContinuousBatcher:
             ),
         }
 
+    def spec_stats(self) -> dict:
+        """Speculative-serving view (the JAX engine's `spec_stats()`):
+        the `cb_spec_*` counters and the controller's state.
+        `acceptance_rate` is accepted over proposed drafts;
+        `accepted_per_round` and `emitted_per_round` average over (live
+        slot, round) pairs, emitted = accepted + 1."""
+        if not self._spec:
+            return {"enabled": False}
+        proposed = int(self.obs.spec_proposed.value())
+        accepted = int(self.obs.spec_accepted.value())
+        slot_rounds = int(self.obs.spec_rounds.value())
+        return {
+            "enabled": True,
+            "k": self._k_now,
+            "k_configured": self._spec_k,
+            "drafting_disabled": not self._spec_on,
+            "draft_dispatches": int(self.obs.spec_draft.value()),
+            "verify_dispatches": int(self.obs.spec_verify.value()),
+            "slot_rounds": slot_rounds,
+            "proposed_tokens": proposed,
+            "accepted_tokens": accepted,
+            "acceptance_rate": (
+                round(accepted / proposed, 4) if proposed else None
+            ),
+            "accepted_per_round": (
+                round(accepted / slot_rounds, 4) if slot_rounds else None
+            ),
+            "emitted_per_round": (
+                round(self.obs.spec_emitted.value() / slot_rounds, 4)
+                if slot_rounds else None
+            ),
+            "accepted_ema": (
+                round(self._spec_ema, 4)
+                if self._spec_ema is not None else None
+            ),
+        }
+
+    def loop_stats(self) -> dict:
+        """Device-resident-loop view (the JAX engine's `loop_stats()`):
+        `steps_per_sync` is per-slot device steps surfaced per fold,
+        averaged over the run (loop_steps * chunk_steps when every fold
+        reaches its horizon)."""
+        exits = {
+            r: int(self.obs.loop_exits.value({"reason": r}))
+            for r in ("slot_done", "unbacked", "horizon")
+        }
+        return {
+            "loop_steps": self.loop_steps,
+            "enabled": self.loop_steps > 1,
+            "dispatches": int(self.obs.loop_dispatches.value()),
+            "chunks_folded": int(self.obs.loop_chunks.value()),
+            "steps_per_sync": self.obs.loop_steps_per_sync.value(),
+            "exits": exits,
+        }
+
     # -- admission -------------------------------------------------------------
 
     def _bucket_for(self, prompt_len: int) -> int:
@@ -644,26 +820,65 @@ class ContinuousBatcher:
         live. Dense: run the decode chunk. Returns the in-flight handle."""
         table, lane, finished = None, None, []
         if self.paged:
-            self._ensure_decode_blocks(self.chunk_steps)
-        self._record_kv_snapshot()
-        if self.paged:
-            # int32, the kernels' index type: no per-layer conversion.
-            table = to_device(self.pool.table.astype(np.int32), self.device)
-            if self._prefilling:
-                lane, finished = self._prepare_lane()
+            table, lane, finished = self._paged_prologue(
+                self.chunk_steps, advance=True
+            )
+        else:
+            self._record_kv_snapshot()
         emitted = decode_chunk(self.model, self._state, table, self.chunk_steps)
         if lane is not None:
             run_lane(self.model, self._state, lane)
         host, ready = self._to_host(emitted)
+        snapshot, fresh = self._epilogue(finished, self.chunk_steps)
+        return host, ready, snapshot, fresh
+
+    def _paged_prologue(self, steps: int, advance: bool):
+        """Back the rows this dispatch writes before the table snapshot
+        names them, record the KV gauges, upload the table and assemble
+        the prefill lane. Returns (table, lane or None, finished)."""
+        self._ensure_decode_blocks(steps, advance=advance)
+        self._record_kv_snapshot()
+        # int32, the kernels' index type: no per-layer conversion.
+        table = to_device(self.pool.table.astype(np.int32), self.device)
+        if self._prefilling:
+            lane, finished = self._prepare_lane()
+            return table, lane, finished
+        return table, None, []
+
+    def _epilogue(self, finished: list[_Prefill], steps: int):
+        """Snapshot the slots before finished prefills flip live (their
+        first token rides the next dispatch's input column), then count
+        the dispatch. Returns (snapshot, fresh)."""
         snapshot = list(self._slot_req)
         fresh = list(self._slot_new)
         self._slot_new = [False] * self.slots
         self._flip_finished(finished)
-        busy = sum(1 for r in snapshot if r is not None)
+        self._mark_dispatch(sum(1 for r in snapshot if r is not None), steps)
+        return snapshot, fresh
+
+    def _mark_dispatch(self, busy: int, steps: int) -> None:
+        """`steps` is the dispatch's per-slot step window: chunk_steps, k+1
+        for a round, the steps a fold ran."""
         self.obs.dispatches.inc()
-        self.obs.busy_steps.inc(busy * self.chunk_steps)
-        self.obs.total_steps.inc(self.slots * self.chunk_steps)
-        return host, ready, snapshot, fresh
+        self.obs.busy_steps.inc(busy * steps)
+        self.obs.total_steps.inc(self.slots * steps)
+
+    def _dispatch_spec(self):
+        """One speculative round: back every live slot's k+1 verify rows
+        (the head mirror is exact here: rounds are synchronous), then the
+        round, and the prefill lane with its draft mirror when admissions
+        ride along."""
+        k = self._k_now
+        table, lane, finished = self._paged_prologue(k + 1, advance=False)
+        emitted, n_emit = spec_round(
+            self.model, self._draft, self._state, self._d_cache, table, k
+        )
+        if lane is not None:
+            run_lane(self.model, self._state, lane)
+            mirror_lane(self._draft, self._d_cache, lane)
+        out = torch.cat([emitted, n_emit[:, None]], dim=1)
+        snapshot, fresh = self._epilogue(finished, k + 1)
+        return out, snapshot, fresh
 
     def _to_host(self, t: torch.Tensor):
         """Start the device->host copy of a chunk's tokens; the event
@@ -756,11 +971,13 @@ class ContinuousBatcher:
                 len(entry.req.prompt),
             )
 
-    def _ensure_decode_blocks(self, window: int) -> None:
+    def _ensure_decode_blocks(self, window: int, *, advance: bool) -> None:
         """Back every live slot's next `window` cache writes, grabbing
         decode blocks as the write head crosses 128-row boundaries; a
-        truly dry pool truncates the request (`pool_overflow`). The
-        write-head mirror advances with the device's cache index."""
+        truly dry pool truncates the request (`pool_overflow`).
+        `advance` moves the write-head mirror with the device's cache
+        index (a plain chunk adds `window`); speculative rounds and folds
+        pass False and advance it at the sync by what they committed."""
         pool = self.pool
         for s in range(self.slots):
             req = self._slot_req[s]
@@ -771,8 +988,22 @@ class ContinuousBatcher:
                 end = min(int(pool.slot_pos[s]) + window, total)
                 if not pool.back_slot(s, end):
                     self._truncate_slot(s)
-            pool.slot_pos[s] += window
+            if advance:
+                pool.slot_pos[s] += window
         pool.set_gauges()
+
+    def _rollback_spec_blocks(self, s: int) -> None:
+        """Return a live slot's decode blocks that back only uncommitted
+        speculative rows (grabbed for a verify window whose rows were
+        rejected); truncated slots keep theirs."""
+        req = self._slot_req[s]
+        if req is None or req.done or req.truncated:
+            return
+        pool = self.pool
+        keep = max(
+            -(-int(pool.slot_pos[s]) // PAGE_ROWS), len(pool.slot_nodes[s]), 1,
+        )
+        pool.rollback_unused(s, keep)
 
     def _truncate_slot(self, s: int) -> None:
         """Cap a live slot's budget at what its allocated blocks back."""
@@ -809,6 +1040,128 @@ class ContinuousBatcher:
                 continue
             emit = tokens[s] if fresh[s] else tokens[s, 1:]
             self._commit_tokens(s, req, emit, now)
+
+    def _process_spec(self, out, snapshot, fresh) -> None:
+        """Sync one round and commit it: per live slot, advance the head
+        mirror by the committed count, commit `[input?] + chosen[:n]`,
+        return the verify-window blocks the rejections left unused; then
+        the counters and the acceptance controller."""
+        out = out.cpu().numpy()  # the round's one sync
+        tokens, counts = out[:, :-1], out[:, -1]
+        now = time.monotonic()
+        live = np.array([r is not None and not r.done for r in snapshot], bool)
+        for s in np.flatnonzero(live):
+            c = int(counts[s])
+            self.pool.slot_pos[s] += c
+            emit = tokens[s, :1 + c] if fresh[s] else tokens[s, 1:1 + c]
+            self._commit_tokens(s, snapshot[s], emit, now)
+            self._rollback_spec_blocks(s)
+        self._account_round(counts, live, self._k_now)
+        self.pool.set_gauges()
+
+    def _account_round(self, counts, live, k: int) -> None:
+        """The counters and the controller for one speculative round of k
+        drafts: counts [slots] tokens committed per slot, live [slots]
+        the slots that were live in it."""
+        obs = self.obs
+        obs.spec_verify.inc()
+        obs.spec_draft.inc(k + 1)
+        n = int(live.sum())
+        if not n:
+            return
+        emitted = int(counts[live].sum())
+        obs.spec_emitted.inc(emitted)
+        obs.spec_rounds.inc(n)
+        obs.spec_proposed.inc(k * n)
+        obs.spec_accepted.inc(emitted - n)
+        self._spec_controller((emitted - n) / n)
+
+    def _step_loop(self) -> None:
+        """One device-resident fold, dispatch and sync (synchronous: the
+        next turn's admissions, backing and k depend on what it
+        committed). Pre-back every live slot to the fold's horizon
+        (`loop_steps` x chunk_steps rows, or x (k+1) for rounds), upload
+        the exit inputs beside the table, run the fold, and replay what
+        it surfaced through `_commit_tokens`, the controller and the
+        counters as if each chunk or round had synced on its own."""
+        pool = self.pool
+        spec = self._spec_on
+        k = self._k_now
+        kstep = (k + 1) if spec else self.chunk_steps
+        self._ensure_decode_blocks(self.loop_steps * kstep, advance=False)
+        self._record_kv_snapshot()
+        live_mask = np.array(
+            [r is not None and not r.done for r in self._slot_req], bool
+        )
+        eos = np.array([
+            r.eos_id if (r is not None and r.eos_id is not None) else -1
+            for r in self._slot_req
+        ])
+        # What the device may still generate per slot: the budget, less
+        # the input-column token a freshly flipped slot surfaces.
+        owed = np.array([
+            max(int(self._budget[s]) - int(self._slot_new[s]), 0)
+            if self._slot_req[s] is not None else 0
+            for s in range(self.slots)
+        ])
+        backed = np.array([pool.backed_rows(s) for s in range(self.slots)])
+        snapshot = list(self._slot_req)
+        fresh = list(self._slot_new)
+        self._slot_new = [False] * self.slots
+        busy = int(live_mask.sum())
+        tokens, t_run, code, counts = self._loop.run(
+            pool.table, live_mask, eos, owed, backed, spec_k=k if spec else 0
+        )
+        now = time.monotonic()
+        steps = t_run * kstep
+        obs = self.obs
+        for s, req in enumerate(snapshot):
+            if req is None or req.done:
+                continue
+            adv = int(counts[:t_run, s].sum()) if spec else steps
+            pool.slot_pos[s] += adv
+            emit = tokens[s, :1 + adv] if fresh[s] else tokens[s, 1:1 + adv]
+            self._commit_tokens(s, req, emit, now)
+            if spec:
+                self._rollback_spec_blocks(s)
+        if spec:
+            for r in range(t_run):
+                self._account_round(counts[r], live_mask, k)
+            pool.set_gauges()
+        self._mark_dispatch(busy, steps)
+        obs.loop_dispatches.inc()
+        obs.loop_chunks.inc(t_run)
+        obs.loop_exits.inc(labels={"reason": LOOP_EXITS[code]})
+        self._loop_sync_n += 1
+        self._loop_steps_acc += steps
+        obs.loop_steps_per_sync.set(
+            round(self._loop_steps_acc / self._loop_sync_n, 2)
+        )
+
+    def _spec_controller(self, round_accepted: float) -> None:
+        """Acceptance-adaptive drafting: an EMA of the accepted drafts per
+        live slot per round; under `spec_min_accept` past the warmup, halve
+        k, and at k = 1 turn drafting off for the engine's lifetime. Every
+        change of k restarts the EMA."""
+        a = self._spec_alpha
+        self._spec_ema = (
+            round_accepted if self._spec_ema is None
+            else a * round_accepted + (1 - a) * self._spec_ema
+        )
+        self._spec_rounds_seen += 1
+        if (
+            self._spec_rounds_seen < self._spec_warmup
+            or self._spec_ema >= self._spec_min_accept
+        ):
+            return
+        if self._k_now > 1:
+            self._k_now = max(1, self._k_now // 2)
+            self._spec_rounds_seen = 0
+            self._spec_ema = None
+            self.obs.spec_k_gauge.set(self._k_now)
+        else:
+            self._spec_on = False
+            self.obs.spec_disabled.set(1)
 
     def _commit_tokens(self, s: int, req: _Request, emit, now) -> int:
         """Feed one slot's newly visible tokens into its request: TTFT,

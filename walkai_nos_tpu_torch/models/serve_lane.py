@@ -13,7 +13,12 @@ engine's semantics (`walkai_nos_tpu/models/serve.py`):
 - `run_lane` is `target_lane`: the prefill lane's [P, W] prompt chunks,
   each row at its own start position through its own block table;
   rows that finish their prompt sample the slot's first token and
-  write the slot's state.
+  write the slot's state. `mirror_lane` writes the same rows into the
+  draft model's pool (the speculative round's lane).
+- `spec_round` is `spec_core`: one batched draft-and-verify round over
+  every slot (k greedy draft steps, one target forward over k+1
+  positions, exact-match acceptance), both write heads moving to the
+  committed count.
 - `admit_dense` is the dense engine's `prefill` + `admit` programs: one
   request's prompt, padded to its bucket, prefilled at batch 1 straight
   into its slot's rows of the dense cache; the slot's index is set to
@@ -30,6 +35,13 @@ updated in place (JAX donates them).
 
 Sampling is counter-based (`models/decode.py`): slot s draws token n of
 its request with (seed, n); the lane draws the first token with n = 0.
+A speculative round draws its verified position j with n + j, so a
+committed token has the draw it would have had spec-off.
+
+Every update of `SlotState` is in place (`copy_`, `+=`, index writes on
+the persistent tensors): the device-resident loop (`serve_graph.py`)
+captures these programs into CUDA graphs, which replay on the same
+storage.
 """
 
 from __future__ import annotations
@@ -41,8 +53,12 @@ import torch
 
 from walkai_nos_tpu_torch.models.decode import sample_rows
 from walkai_nos_tpu_torch.models.lm import DecoderLM, DenseCache, PagedCache
+from walkai_nos_tpu_torch.models.speculative import accept_tokens
 
-__all__ = ["SlotState", "admit_dense", "decode_chunk", "run_lane", "to_device"]
+__all__ = [
+    "SlotState", "admit_dense", "decode_chunk", "mirror_lane", "run_lane",
+    "spec_round", "to_device",
+]
 
 
 @dataclass
@@ -129,7 +145,7 @@ def decode_chunk(
     """Advance every slot `chunk_steps` tokens; returns [slots,
     1 + chunk_steps] int64 tokens (column 0 = the chunk's input).
     `table` None: the dense cache, which advances its own index."""
-    first = st.tokens
+    first = st.tokens.clone()
     tok = first
     out = []
     for _ in range(chunk_steps):
@@ -144,8 +160,54 @@ def decode_chunk(
         )
         st.counters += 1
         out.append(tok)
-    st.tokens = tok
+    st.tokens.copy_(tok)
     return torch.stack([first] + out, dim=1)
+
+
+@torch.inference_mode()
+def spec_round(
+    model: DecoderLM, draft: DecoderLM, st: SlotState, d_cache: PagedCache,
+    table: torch.Tensor, k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One batched draft-and-verify round over every slot (JAX
+    `spec_core`). Entering with both pools' write heads at idx0 =
+    `st.index`: the draft proposes k tokens greedily (k single-step
+    forwards through its own pool on the same table, plus one more that
+    writes d_{k-1}'s K/V, needed at full acceptance); the target verifies
+    all k+1 positions in one forward; position j samples with the draw
+    counter + j, so the chain is what the plain chunk would draw;
+    `accept_tokens` keeps the longest agreeing prefix plus the target's
+    own next token. Both heads move to idx0 + n_emit (one index serves
+    both pools); rows past the head are masked until overwritten.
+
+    Returns (emitted [slots, k+2] int64, n_emit [slots] int64): column 0
+    is the round's input token, columns 1..k+1 the chosen chain, of
+    which the first n_emit[s] are committed."""
+    idx0 = st.index.clone()
+    last = st.tokens.clone()
+    d_idx = idx0.clone()
+    tok, drafts = last, []
+    for _ in range(k):
+        logits = draft(tok[:, None], d_cache, table, d_idx)
+        d_idx += 1
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        drafts.append(tok)
+    drafts = torch.stack(drafts, dim=1)  # [slots, k]
+    draft(drafts[:, k - 1:], d_cache, table, d_idx)
+    t_in = torch.cat([last[:, None], drafts], dim=1)
+    t_logits = model(t_in, st.cache, table, idx0)
+    chosen = torch.stack([
+        sample_rows(
+            t_logits[:, j].float(), st.temps, st.topks, st.topps,
+            st.seeds, st.counters + j,
+        )
+        for j in range(k + 1)
+    ], dim=1)  # [slots, k+1]
+    _, n_emit, nxt = accept_tokens(drafts, chosen)
+    st.index.copy_(idx0 + n_emit)
+    st.tokens.copy_(nxt)
+    st.counters += n_emit
+    return torch.cat([last[:, None], chosen], dim=1), n_emit
 
 
 @torch.inference_mode()
@@ -177,6 +239,16 @@ def run_lane(model: DecoderLM, st: SlotState, lane: dict) -> None:
     st.topps[slots] = lane["topp"][rows]
     st.seeds[slots] = seed
     st.counters[slots] = 1
+
+
+@torch.inference_mode()
+def mirror_lane(draft: DecoderLM, d_cache: PagedCache, lane: dict) -> None:
+    """The prefill lane's rows into the draft's pool (the JAX spec
+    round's lane mirror): block b holds the same prompt rows in both
+    pools, so a slot is draft-warm the moment it flips live. The rows
+    are exactly the ones `run_lane` writes (pad rows start past the
+    table and go to the dump block); the draft routes no experts."""
+    draft(lane["tok"], d_cache, lane["table"], lane["start"])
 
 
 @torch.inference_mode()

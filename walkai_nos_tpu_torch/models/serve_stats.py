@@ -1,11 +1,12 @@
-"""The serving engine's counters: the few series `occupancy()`,
-`kv_stats()` and `prefix_stats()` read, under the JAX engine's names.
+"""The serving engine's counters: the series `occupancy()`, `kv_stats()`,
+`prefix_stats()`, `spec_stats()` and `loop_stats()` read, under the JAX
+engine's names.
 
 The JAX engine keeps these in its `obs/` telemetry planes (registry,
 trace, SLO and attribution layers); those planes are not ported yet, so
 this module holds plain in-process counters and gauges with the same
-`inc` / `set` / `set_min` / `value` surface the block pool and the
-engine call.
+`inc` / `set` / `set_min` / `value` surface the block pool
+and the engine call.
 """
 
 from __future__ import annotations
@@ -66,3 +67,17 @@ class EngineStats:
         self.prefix_cached_tokens = Gauge()
         self.pool_blocks = Gauge()         # labels: state
         self.pool_min_free = Gauge()
+        # Speculative rounds (cb_spec_*).
+        self.spec_draft = Counter()        # draft forwards
+        self.spec_verify = Counter()       # target verify forwards
+        self.spec_rounds = Counter()       # (live slot, round) pairs
+        self.spec_proposed = Counter()
+        self.spec_accepted = Counter()
+        self.spec_emitted = Counter()      # tokens committed by rounds
+        self.spec_k_gauge = Gauge()
+        self.spec_disabled = Gauge()
+        # The device-resident loop (cb_loop_*).
+        self.loop_dispatches = Counter()
+        self.loop_chunks = Counter()
+        self.loop_exits = Counter()        # labels: reason
+        self.loop_steps_per_sync = Gauge()

@@ -48,7 +48,8 @@ fresh rows (`scatter_paged_rows`), as with the TPU kernel.
 Routing follows the tensor's device and nothing else: a CPU tensor takes
 the plain version (the tests' path), a CUDA tensor launches the kernel
 or raises. There is no environment switch and no fallback. Each wrapper
-counts its launches in `LAUNCHES`.
+counts its launches in `LAUNCHES`, and K1's and K2's also by query steps
+in `LAUNCHES_AT_STEPS`.
 
 Layouts at the public functions are the JAX package's. The one
 difference: `scatter_paged_rows` writes the pools IN PLACE (JAX returns
@@ -80,6 +81,7 @@ import torch
 __all__ = [
     "KV_QUANT_MODES",
     "LAUNCHES",
+    "LAUNCHES_AT_STEPS",
     "MAX_KERNEL_STEPS",
     "PAGE_ROWS",
     "decode_attention",
@@ -125,6 +127,9 @@ LAUNCHES = {
     "paged_attention": 0, "paged_attention_int8": 0, "qkv_rope": 0,
     "qkv_rope_int8": 0, "decode_attention": 0,
 }
+# K1's and K2's launches again, keyed (counter name, query steps): a
+# speculative verify runs them at k+1 steps, its draft at 1.
+LAUNCHES_AT_STEPS: dict[tuple[str, int], int] = {}
 
 # Quantized KV storage modes (`LMConfig.kv_quant`): "int8" stores int8 rows
 # with per-row f32 scales; "sim" stores full-precision rows with unit
@@ -139,6 +144,12 @@ _SCALE_TINY = 1e-12
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCHES_AT_STEPS.clear()
+
+
+def _count(arm: str, steps: int) -> None:
+    LAUNCHES[arm] += 1
+    LAUNCHES_AT_STEPS[arm, steps] = LAUNCHES_AT_STEPS.get((arm, steps), 0) + 1
 
 
 # -- plain versions -----------------------------------------------------
@@ -829,7 +840,7 @@ def _paged_attention_cuda(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _check(code, arm)
-    LAUNCHES[arm] += 1
+    _count(arm, steps)
     return out
 
 
@@ -939,7 +950,7 @@ def qkv_rope_projection(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _check(code, arm)
-    LAUNCHES[arm] += 1
+    _count(arm, steps)
     return q, k, v
 
 
