@@ -89,7 +89,7 @@ the CUDA toolkit (`nvcc`). It:
    at GPT-2 small's serving shape; imports random HF-named TinyLlama-1.1B
    and GPT-2 small checkpoints (`models/hf.py`) and serves them through
    the paged engine (GPT-2 also the dense one), then an 8-expert
-   TinyLlama-width MoE model at capacity 1.25 and 4.0 through both
+   TinyLlama-width MoE model (8 layers) at capacity 1.25 and 4.0 through both
    engines, `make_generate_fn` and speculative decoding, with a profiled
    window. Each timed run is followed by an untimed second run of the
    same batch that must repeat its tokens (at 1.25 under drops, with
@@ -99,6 +99,26 @@ the CUDA toolkit (`nvcc`). It:
    (K7 on the MoE model's dense paths) are checked and timed; one MoE
    decode step through K2 + K1 is held to the plain route with the
    routers pinned and with the random routers;
+6e. (run right after 6) serves the 8 requests x 32 new tokens at
+   TinyLlama-1.1B width under adapters (0, 1, 2, 3, 0, 1, 2, 3) of
+   `AdapterSet.synthetic(k=4,
+   rank=8, scale=0.5)` (`lora_serving_phase`): armed forwards take the
+   unfused route (K1 without injection, no K2: K1 launched exactly
+   layers x decode steps); adapter-0 requests must equal a LoRA-free
+   `fused_qkv=False` engine's tokens and every other request differ from
+   them; one request per adapter alone repeats its tokens; no prefix hit
+   across adapters and two within one; each adapter's first-token logits
+   from the armed engine run in f32 (22 layers) within F32_REL of a plain
+   f32 forward over its merged weights (W + A B), the bf16 engine's
+   reported against it; `loop_steps` 4 gives loop 1's tokens, and a hot load into id 2
+   after the fold graphs were captured reaches the folds (a fresh engine
+   built with the new tree gives the same tokens); speculative rounds
+   with the base model as draft give the same tokens at loop 1 and 4 (K1
+   at steps 5 = verify rounds x layers, no K2); int8 KV serves every
+   budget and "int8-sim" KV the bf16 tokens; tokens/s, step and folded
+   step times beside the LoRA-free engines', `lora_stats()`, and K1
+   checked and timed on one armed decode call's and one verify call's
+   inputs;
 7. holds K3 (packed ViT attention), K4 (flash forward + lse), K5 (dq and
    the row term D') and K6 (dk/dv) against their plain versions at the
    ViT's shapes (batch 32, 296 tokens, 6 heads of 64) in bf16 and f32,
@@ -712,7 +732,7 @@ def _first_token_logits(engine, sink: dict):
 
     run_lane, sample_rows = serve_mod.run_lane, serve_lane.sample_rows
 
-    def recording_run_lane(model, st, lane):
+    def recording_run_lane(model, st, lane, *rest):
         # The finishing entries, in lane-row order: the rows of `fl`.
         fin = [p.req.rid for p in engine._prefilling
                if p.consumed == len(p.req.prompt)]
@@ -724,7 +744,7 @@ def _first_token_logits(engine, sink: dict):
 
         serve_lane.sample_rows = sample
         try:
-            return run_lane(model, st, lane)
+            return run_lane(model, st, lane, *rest)
         finally:
             serve_lane.sample_rows = sample_rows
 
@@ -735,15 +755,17 @@ def _first_token_logits(engine, sink: dict):
         serve_mod.run_lane = run_lane
 
 
-def _serve_timed(engine, prompts, new: int, da) -> dict:
-    """Serves `prompts` (new tokens each) through a warmed engine with the
-    launch counts set to 0 just before and read just after; returns its
-    records, wall, launches and dispatches."""
+def _serve_timed(engine, prompts, new: int, da, ids=None) -> dict:
+    """Serves `prompts` (new tokens each, under the adapter ids `ids`, or
+    the base model) through a warmed engine with the launch counts set to
+    0 just before and read just after; returns its records, wall,
+    launches and dispatches."""
     torch.cuda.synchronize()
     da.reset_launch_counts()
     d0 = engine.obs.dispatches.value()
     t0 = time.monotonic()
-    rids = [engine.submit(p, max_new_tokens=new) for p in prompts]
+    rids = [engine.submit(p, max_new_tokens=new, adapter=a)
+            for p, a in zip(prompts, ids or [0] * len(prompts))]
     records = {}
     while engine.has_work:
         engine.step()
@@ -908,14 +930,16 @@ def _path_paged_kernels(da, cap: dict, what: str) -> dict:
 
 def _recorded_serve(ContinuousBatcher, cfg, model, kw, prompts, new, lm_mod,
                     want_tokens, what, first=None, moe_calls=None,
-                    capture=("fused_qkv_paged_attention", 48)) -> dict:
+                    capture=("fused_qkv_paged_attention", 48), ids=None) -> dict:
     """An untimed second run of a timed serving run on a fresh engine
     over the same model: it must give the timed run's tokens (output is
     a function of weights, prompts and knobs; under MoE capacity drops the
     same batch must give the same tokens), and it records what the timed
     run must not pay for: the first-token logits (`first`), each MoE
     call's inputs (`moe_calls`) and the inputs of layer 0's kernel call
-    (`capture`: the entry point, the decode step). Returns the capture."""
+    (`capture`: the entry point, the decode step); `want_tokens` None
+    makes it a first run, whose tokens the caller checks. Returns the
+    capture."""
     engine = ContinuousBatcher(cfg, model, **kw)
     engine.warm()
     cap, handles = {}, []
@@ -925,12 +949,13 @@ def _recorded_serve(ContinuousBatcher, cfg, model, kw, prompts, new, lm_mod,
            else contextlib.nullcontext())
     try:
         with ctx, _captured(lm_mod, capture[0], capture[1] * cfg.num_layers, cap):
-            rids = [engine.submit(p, max_new_tokens=new) for p in prompts]
+            rids = [engine.submit(p, max_new_tokens=new, adapter=a)
+                    for p, a in zip(prompts, ids or [0] * len(prompts))]
             out = engine.run()
     finally:
         for hnd in handles:
             hnd.remove()
-    if [out[r] for r in rids] != want_tokens:
+    if want_tokens is not None and [out[r] for r in rids] != want_tokens:
         _fail(f"{what}: a second run of the same batch gave other tokens")
     cap["rids"], cap["records"] = rids, {r: {"tokens": out[r]} for r in rids}
     return cap
@@ -994,9 +1019,10 @@ LOOP_STEPS = 4
 LOOP_NEW = 256
 SPEC_K = 4
 SPEC_NEW = 32
+LOOP_WINDOW_LAYERS = 8
 
 
-def _serve_legged(engine, prompts, new: int, da) -> dict:
+def _serve_legged(engine, prompts, new: int, da, ids=None) -> dict:
     """`_serve_timed` for an engine that folds or drafts: decode steps
     from the engine's slot-step counter (a fold counts the steps it ran,
     a round k+1), and the wall inside `_step_loop` (the folds: upload,
@@ -1014,7 +1040,7 @@ def _serve_legged(engine, prompts, new: int, da) -> dict:
     verify0 = engine.obs.spec_verify.value()
     stats0 = engine.loop_stats()
     try:
-        run = _serve_timed(engine, prompts, new, da)
+        run = _serve_timed(engine, prompts, new, da, ids)
     finally:
         engine._step_loop = step_loop
     steps = (engine.obs.total_steps.value() - total0) / engine.slots
@@ -1681,13 +1707,16 @@ def _in_ranges(events, ranges) -> list:
 
 def window_loop_serving(seed: int) -> dict:
     """4 of the serving prompts x LOOP_NEW new tokens through a warmed
-    paged engine with `loop_steps` 4, CPU and CUDA activity, each
+    paged engine with `loop_steps` 4 at TinyLlama-1.1B widths and
+    LOOP_WINDOW_LAYERS layers (host and device activity of 22 layers took
+    the window ~100 s to trace and read), CPU and CUDA activity, each
     `_step_loop` under a profiler range "fold". The profiler must see as
     many K1 and K2 launches as the wrappers counted (at capture) and the
     folds added at each replay; and inside each fold's range exactly one
     graph launch (`cudaGraphLaunch`), one host->device copy (the table and
     exit inputs), one device->host copy (the outputs), one stream
-    synchronize and no kernel launched from the host. Reports the
+    synchronize and no kernel launched from the host (a copy counted at
+    the host call that issued it). Reports the
     device-busy share of the window and of the folds' ranges."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1695,8 +1724,9 @@ def window_loop_serving(seed: int) -> dict:
     from walkai_nos_tpu_torch.models.lm import DecoderLM, LMConfig
     from walkai_nos_tpu_torch.models.serve import ContinuousBatcher
     from walkai_nos_tpu_torch.ops import decode_attention as da
+    import dataclasses
 
-    cfg = _tinyllama_cfg(LMConfig)
+    cfg = dataclasses.replace(_tinyllama_cfg(LMConfig), num_layers=LOOP_WINDOW_LAYERS)
     engine = ContinuousBatcher(cfg, DecoderLM(cfg, device="cuda", seed=seed),
                                loop_steps=LOOP_STEPS, **LM_ENGINE_KW)
     engine.warm()
@@ -1736,13 +1766,22 @@ def window_loop_serving(seed: int) -> dict:
                     for e in host if e.name == "fold")
     if len(ranges) != folds or folds < 1:
         _fail(f"profiled window: {len(ranges)} fold ranges for {folds} folds")
+    # A copy is placed by the host call that issued it (the device event
+    # carries that call's correlation id): the device clock, converted to
+    # the host's, can put a copy's start before the range of its fold.
+    issued = {e.id: e for e in host if e.id}
+
+    def issuers(prefix):
+        return [issued[e.id] for e in device
+                if e.name.startswith(prefix) and e.id in issued]
+
     kinds = {
         "graph_launches": [e for e in host if e.name.startswith("cudaGraphLaunch")],
         "stream_syncs": [e for e in host if e.name.startswith("cudaStreamSynchronize")],
         "host_kernel_launches": [e for e in host if e.name.startswith(
             ("cudaLaunchKernel", "cuLaunchKernel"))],
-        "copies_to_device": [e for e in device if e.name.startswith("Memcpy HtoD")],
-        "copies_to_host": [e for e in device if e.name.startswith("Memcpy DtoH")],
+        "copies_to_device": issuers("Memcpy HtoD"),
+        "copies_to_host": issuers("Memcpy DtoH"),
     }
     # A fold that captures its graph first records its kernels through
     # the host; the others only replay.
@@ -1944,16 +1983,27 @@ def window_decode_launches(seed: int) -> dict:
 
 def run_window(name: str, seed: int) -> dict:
     """Runs profiled window `name` in a child process of its own; fails
-    if the child fails. Returns the window's summary."""
+    if the child fails. Returns the window's summary. The children write
+    and reuse bytecode under the gitignored kernel build directory: the
+    card's machine sets PYTHONDONTWRITEBYTECODE, so each child would
+    otherwise compile the Python sources of PyTorch and the port anew
+    (~8 s a child there)."""
+    pycache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "walkai_nos_tpu_torch", "_kernels_build", "pycache")
+    t0 = time.monotonic()
     proc = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--window", name,
          "--seed", str(seed)],
         capture_output=True, text=True, timeout=600,
+        env={**{k: v for k, v in os.environ.items() if k != "PYTHONDONTWRITEBYTECODE"},
+             "PYTHONPYCACHEPREFIX": pycache},
     )
     if proc.returncode != 0:
         _fail(f"profiled window {name} exited {proc.returncode}:\n"
               f"{proc.stderr[-3000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    summary["child_process_s"] = time.monotonic() - t0
+    return summary
 
 
 def _device_rows(averages) -> list:
@@ -2018,6 +2068,399 @@ def unfused_phase(ContinuousBatcher, DecoderLM, da, cfg, seed: int) -> dict:
     if launches["paged_attention"] <= 0 or launches["qkv_rope"] != 0:
         _fail(f"unfused route launched {launches}")
     return {"requests": len(rids), "launches": launches}
+
+
+# -- Multi-LoRA serving --------------------------------------------------------
+#
+# The paged engine armed with four synthetic adapters (`models/lora.py`; id 0
+# the base model, ids 1-3 ragged ranks 1-3 in a rank-8 bucket, scale 0.5 so
+# that adapters change tokens) at TinyLlama-1.1B width. An armed forward
+# leaves the fused route: its decode steps and verifies run K1 without
+# injection (no K2), and the deltas are stock PyTorch products.
+
+LORA_IDS = (0, 1, 2, 3, 0, 1, 2, 3)  # the serving prompts' adapters
+LORA_NEW = 32
+LORA_SHORT = 16  # new tokens of the alone and KV legs (held to the prefix)
+
+
+def _lora_tree(dims: dict, layers: int, rank: int, seed: int) -> dict:
+    """A full adapter tree (every block and projection) of rank `rank`,
+    seeded, scaled as `AdapterSet.synthetic(scale=0.5)` draws."""
+    rng = np.random.default_rng(seed)
+    return {
+        f"block{i}": {
+            proj: {"a": rng.standard_normal((din, rank), np.float32) / np.sqrt(din),
+                   "b": rng.standard_normal((rank, dout), np.float32) * 0.5}
+            for proj, (din, dout) in sorted(dims.items())
+        }
+        for i in range(layers)
+    }
+
+
+def _merged_llama_sd(model, tree: dict, k: int) -> dict:
+    """HF-named f32 tensors of a port llama's weights with adapter k's
+    deltas merged, W + A B (`tree`: an AdapterSet's host stacks), for
+    `_llama_reference_logits`: plain tensor ops, nothing of the port's
+    LoRA code. Port kernels are [in, out], HF Linear weights [out, in]."""
+    c = model.cfg
+    d, kv = c.hidden_dim, c.kv_heads * c.head_dim
+
+    def merged(kernel, blk: str, proj: str):
+        pair = tree[blk][proj]
+        a = torch.from_numpy(pair["lora_a"][k]).cuda()
+        b = torch.from_numpy(pair["lora_b"][k]).cuda()
+        return (kernel.detach().float() + a @ b).T
+
+    sd = {"model.embed_tokens.weight": model.embed.embedding.detach().float(),
+          "model.norm.weight": model.norm.scale.detach().float(),
+          "lm_head.weight": model.head.kernel.detach().float().T}
+    for i, block in enumerate(model.blocks):
+        p, name = f"model.layers.{i}.", f"block{i}"
+        qkv = merged(block.attn.qkv.kernel, name, "qkv")
+        sd.update({
+            p + "input_layernorm.weight": block.norm1.scale.detach().float(),
+            p + "self_attn.q_proj.weight": qkv[:d],
+            p + "self_attn.k_proj.weight": qkv[d:d + kv],
+            p + "self_attn.v_proj.weight": qkv[d + kv:],
+            p + "self_attn.o_proj.weight": merged(block.attn.out_proj.kernel, name,
+                                                  "out_proj"),
+            p + "post_attention_layernorm.weight": block.norm2.scale.detach().float(),
+            p + "mlp.gate_proj.weight": merged(block.gate.kernel, name, "gate"),
+            p + "mlp.up_proj.weight": merged(block.fc1.kernel, name, "fc1"),
+            p + "mlp.down_proj.weight": merged(block.fc2.kernel, name, "fc2"),
+        })
+    return sd
+
+
+# A plain f32 forward against the armed engine run in f32 (the bf16
+# weights converted exactly): summation order only, through 22 layers.
+# A delta on a wrong projection or under a wrong id moves logits by O(1).
+F32_REL = 1e-3
+
+
+def _lora_reference_check(ContinuousBatcher, lm_mod, model, armed_kw, prompts,
+                          bf16_first: dict) -> dict:
+    """Check 7: request k (prompt k under adapter k, k = 0..3) on an armed
+    engine run in f32 at full width, its first-token logits within F32_REL
+    x max |ref| of `_llama_reference_logits` over the model's weights with
+    adapter k's deltas merged, and its greedy token the reference's where
+    the reference's top-2 margin exceeds that. The bf16 engine's logits
+    (`bf16_first`, per k) are reported against the same reference in units
+    of HF_REL x max |ref|: bf16 rounding alone, which grows with the
+    deltas' size (the base model takes ~0.56 of HF_REL here, a rank-3
+    adapter at scale 0.5 more than 1)."""
+    import dataclasses
+
+    cfg32 = dataclasses.replace(model.cfg, dtype="float32")
+    m32 = lm_mod.DecoderLM(cfg32, device="cuda", seed=0)
+    m32.load_state_dict(model.state_dict())
+    kw = armed_kw()
+    host = kw["adapters"].host_tree()
+    engine = ContinuousBatcher(cfg32, m32, **kw)
+    first, rids = {}, []
+    with _first_token_logits(engine, first):
+        for k in range(4):
+            rids.append(engine.submit(prompts[k], max_new_tokens=1, adapter=k))
+            engine.run()
+    del engine, m32
+    hcfg = _tinyllama_hf_config()
+    out = {"tol": f"f32 engine: {F32_REL:g} * max|ref|; bf16 reported over "
+                  f"{HF_REL:g} * max|ref|"}
+    for k, rid in enumerate(rids):
+        sd = _merged_llama_sd(model, host, k)
+        ref = _llama_reference_logits(sd, hcfg, prompts[k])
+        del sd
+        top = float(ref.abs().max())
+        err = float((first[rid] - ref).abs().max())
+        top2 = torch.topk(ref, 2).values
+        margin = float(top2[0] - top2[1])
+        if not err <= F32_REL * top:
+            _fail(f"lora reference: adapter {k}'s f32 first-token logits {err} from "
+                  f"the merged-weight forward (tolerance {F32_REL * top})")
+        if margin > F32_REL * top and int(first[rid].argmax()) != int(ref.argmax()):
+            _fail(f"lora reference: adapter {k}'s f32 first token "
+                  f"{int(first[rid].argmax())}, the reference's {int(ref.argmax())}")
+        out[str(k)] = {
+            "f32_err_over_tol": err / (F32_REL * top), "ref_top2_margin": margin,
+            "bf16_err_over_hf_tol": float((bf16_first[k] - ref).abs().max())
+                                    / (HF_REL * top),
+        }
+    torch.cuda.empty_cache()
+    return out
+
+
+def _path_k1(da, cap: dict, what: str) -> dict:
+    """K1 without injection on the inputs of one call an armed path made
+    (`_captured` on `paged_decode_attention`): against its plain version
+    (per slot, the rule of q's dtype), then timed beside its plain
+    version, SDPA over each slot's dense view (K/V repeated to every
+    head, masked past its position) and its bound, cycling through
+    ROTATE copies of the pools."""
+    q, kp, vp, table, idx = cap["args"]
+    kw = cap["kwargs"]
+    ks, vs = kw.get("k_scales"), kw.get("v_scales")
+    if ks is not None:
+        _fail(f"{what}: a quantized pool; the LoRA leg checks K1's bf16 arm")
+    b, h, steps, hd = q.shape
+    kvh, nlog = kp.shape[1], table.shape[1]
+    e, ratio = _err([da.paged_decode_attention(q, kp, vp, table, idx)],
+                    [da.paged_decode_attention_reference(q, kp, vp, table, idx)],
+                    q.dtype)
+    if not ratio <= 1.0:
+        _fail(f"{what}: K1 {e} from its plain version, {ratio:.3g}x its "
+              f"per-slot tolerance")
+    pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(ROTATE - 1)]
+    gathered = [tuple(da.gather_paged_cache(t, table).repeat_interleave(h // kvh, 1)
+                      for t in pair) for pair in pools]
+    cap_rows = nlog * 128
+    qpos = idx.long()[:, None] + torch.arange(steps, device=q.device)
+    mask = (torch.arange(cap_rows, device=q.device) <= qpos[..., None])[:, None]
+    vis = float(torch.clamp(qpos[:, -1] + 1, max=cap_rows).sum())
+    nbytes = vis * kvh * hd * 2 * 2 + 2 * b * h * steps * hd * 2 + b * nlog * 4 + b * 4
+    flops = vis * h * steps * hd * 4
+    bound_ms, bound_by = _bound(nbytes, flops)
+    return {
+        "inputs": what, "shape": f"b{b} steps{steps} h{h} kvh{kvh} hd{hd} nlog{nlog}",
+        "max_abs_err": e, "err_over_tol": ratio,
+        "tol": "%g * max|plain| per slot + %g" % TOL[q.dtype],
+        "ms": _timed(lambda i: da.paged_decode_attention(q, *pools[i % ROTATE], table, idx), 20),
+        "plain_ms": _timed(
+            lambda i: da.paged_decode_attention_reference(q, *pools[i % ROTATE], table, idx), 5),
+        "library_ms": _timed(lambda i: torch.nn.functional.scaled_dot_product_attention(
+            q, *gathered[i % ROTATE], attn_mask=mask), 20),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+    }
+
+
+def lora_serving_phase(ContinuousBatcher, lm_mod, lora_mod, da, cfg, prompts,
+                       seed: int, fused: dict) -> dict:
+    """Multi-LoRA serving at TinyLlama-1.1B width (22 layers, bf16, 8 slots,
+    cache_len 2048): the serving prompts x 32 new tokens under adapters
+    LORA_IDS (the two prefix-sharing prompts under ids 0 and 3) on an armed
+    engine, beside LoRA-free engines on the same weights (the spec and
+    int8 legs serve requests 0-3, one per adapter; the alone and int8 legs
+    LORA_SHORT new tokens, held to the batch's first LORA_SHORT). Fails, each with
+    its own message, unless: (1) every request returns its budget; (2)
+    every request under ids 1-3 differs from the base model's; (3) one
+    request per adapter alone on a fresh armed engine repeats its tokens;
+    (4) adapter-0 requests equal a LoRA-free `fused_qkv=False` engine's;
+    (5) the armed engine launches no K2 and K1 exactly layers x decode
+    steps; (6) no prefix hit across adapters and two within one; (7) each
+    adapter's first-token logits from the armed engine run in f32 lie
+    within F32_REL of a plain f32 forward over the weights with its deltas
+    merged (the bf16 engine's reported against it); (8) `loop_steps` 4 gives loop 1's
+    tokens, and after a hot load into id 2 (its graphs captured) a request
+    under id 2 served by folds equals a fresh engine built with the new
+    tree; (9) speculative rounds (k 4, the base model as draft) give the
+    same tokens at loop 1 and 4, with K1 at steps 5 = verify rounds x
+    layers and no K2 there; (10) int8 KV serves every budget and
+    "int8-sim" KV gives the bf16 tokens. Reports tokens/s, step and folded
+    step times of the armed and LoRA-free engines, the adapter-0 rows'
+    agreement with the default fused engine (`fused`: the LM serving
+    leg's run of these prompts on the same weights, its "tokens" and
+    figures) and `lora_stats()`; checks
+    and times K1 on one armed decode call's and one verify call's
+    inputs."""
+    import dataclasses
+
+    torch.cuda.empty_cache()
+    model = lm_mod.DecoderLM(cfg, device="cuda", seed=seed)
+    cfg_u = dataclasses.replace(cfg, fused_qkv=False)
+    model_u = lm_mod.DecoderLM(cfg_u, device="cuda", seed=seed)
+    model_u.load_state_dict(model.state_dict())
+    ids = list(LORA_IDS)
+
+    def armed_kw(**kw):
+        aset = lora_mod.AdapterSet.synthetic(cfg, k=4, rank=8, seed=seed, scale=0.5)
+        return dict(LM_ENGINE_KW, adapters=aset, **kw)
+
+    def toks(run):
+        return [run["records"][r]["tokens"] for r in run["rids"]]
+
+    out = {"model": "TinyLlama-1.1B widths, 22 layers, random bf16 weights",
+           "adapters": "AdapterSet.synthetic(k=4, rank=8, scale=0.5)",
+           "ids": ids, "new_tokens_each": LORA_NEW, "seconds": {}}
+    t_lap = [time.monotonic()]
+
+    def lap(name):
+        now = time.monotonic()
+        out["seconds"][name] = now - t_lap[0]
+        t_lap[0] = now
+
+    # The spec and int8 legs serve requests 0-3 (one per adapter; a
+    # request's tokens do not depend on the batch).
+    four, four_ids = prompts[:4], ids[:4]
+    # An untimed first run on an armed engine (the timed run below then
+    # pays no first call of a shape): its tokens, the first-token logits
+    # (check 7) and K1's inputs at decode step 48.
+    first = {}
+    cap = _recorded_serve(ContinuousBatcher, cfg, model, armed_kw(), prompts, LORA_NEW,
+                          lm_mod, None, "lora serving", first=first,
+                          capture=("paged_decode_attention", 48), ids=ids)
+    tokens = [cap["records"][r]["tokens"] for r in cap["rids"]]
+    lap("first_run")
+    # The armed engine, timed (checks 1, 5, 6).
+    engine = ContinuousBatcher(cfg, model, **armed_kw())
+    engine.warm()
+    armed = _serve_timed(engine, prompts, LORA_NEW, da, ids)
+    if toks(armed) != tokens:
+        _fail("lora serving: a second run of the same batch gave other tokens")
+    launches = armed["launches"]
+    want_k1 = cfg.num_layers * armed["decode_steps"]
+    if (launches["qkv_rope"] or launches["decode_attention"]
+            or launches["paged_attention"] != want_k1):
+        _fail(f"lora serving: launches {launches}, not K1 = {cfg.num_layers} "
+              f"layers x {armed['decode_steps']} decode steps and no K2 or K7")
+    if engine.prefix_stats()["block_hits"]:
+        _fail(f"lora serving: a prefix hit across adapters: {engine.prefix_stats()}")
+    rid = engine.submit(prompts[0], max_new_tokens=LORA_NEW, adapter=ids[7])
+    engine.run()
+    hits = engine.prefix_stats()["block_hits"]
+    if hits != 2:
+        _fail(f"lora serving: {hits} prefix hits within adapter {ids[7]}, not 2")
+    out["armed"] = _public(armed)
+    out["prefix_hits_within_one_adapter"] = hits
+    out["lora_stats"] = engine.lora_stats()
+    del engine
+    lap("timed_run")
+    # LoRA-free engines on the same weights (checks 2, 4; the report).
+    e = ContinuousBatcher(cfg_u, model_u, **LM_ENGINE_KW)
+    e.warm()
+    free = {"unfused": _serve_timed(e, prompts, LORA_NEW, da)}
+    del e
+    lap("lora_free_engine")
+    base = toks(free["unfused"])
+    for i, k in enumerate(ids):
+        if k == 0 and tokens[i] != base[i]:
+            _fail(f"lora serving: adapter-0 request {i} differs from the LoRA-free "
+                  f"fused_qkv=False engine")
+        if k and tokens[i] == base[i]:
+            _fail(f"lora serving: request {i} under adapter {k} gave the base tokens")
+    zero = [i for i, k in enumerate(ids) if k == 0]
+    same = sum(a == b for i in zero for a, b in zip(tokens[i], fused["tokens"][i]))
+    out["lora_free"] = {"unfused": _public(free["unfused"]),
+                        "fused (the LM serving leg)": {
+                            k: fused[k] for k in ("step_ms", "decode_tokens_per_s")}}
+    out["adapter0_equal_unfused_lora_free"] = True
+    out["adapter0_vs_fused_lora_free"] = {
+        "tokens_equal_share": same / (LORA_NEW * len(zero)),
+        "divergence": _first_divergence(model, [prompts[i] for i in zero],
+                                        [tokens[i] for i in zero],
+                                        [fused["tokens"][i] for i in zero]),
+    }
+    out["reference"] = _lora_reference_check(
+        ContinuousBatcher, lm_mod, model, armed_kw, prompts,
+        {k: first[cap["rids"][k]] for k in range(4)})
+    lap("reference_f32")
+    k1_steps1 = _path_k1(da, cap, "lora serving: layer 0, decode step 48")
+    del cap
+    lap("k1_steps1")
+    # One request per adapter alone on a fresh armed engine (check 3).
+    alone = ContinuousBatcher(cfg, model, **armed_kw())
+    for k in range(4):
+        rid = alone.submit(prompts[k], max_new_tokens=LORA_SHORT, adapter=k)
+        if alone.run()[rid] != tokens[k][:LORA_SHORT]:
+            _fail(f"lora serving: request {k} alone under adapter {k} gave other "
+                  f"tokens than in the batch")
+    del alone
+    lap("alone")
+    # loop_steps 4, then a hot load into id 2 after the graphs (check 8).
+    e = ContinuousBatcher(cfg, model, **armed_kw(loop_steps=LOOP_STEPS))
+    e.warm()
+    loop = _serve_legged(e, prompts, LORA_NEW, da, ids)
+    if toks(loop) != tokens:
+        _fail("lora serving: loop_steps 4 gave other tokens than loop_steps 1")
+    captures = e._loop.captures
+    if not captures or not loop.get("folded_steps"):
+        _fail(f"lora serving: loop_steps 4 ran no fold ({loop.get('folds')} folds, "
+              f"{captures} captures)")
+    tree = _lora_tree(lora_mod.lora_proj_dims(cfg), cfg.num_layers, 8, seed + 31)
+    e.load_adapter(2, tree, name="hot")
+    folds0 = e.loop_stats()["dispatches"]
+    rid = e.submit(prompts[2], max_new_tokens=LORA_NEW, adapter=2)
+    hot = e.run()[rid]
+    if e.loop_stats()["dispatches"] == folds0 or e._loop.captures != captures:
+        _fail(f"lora serving: the reloaded adapter's request ran no fold of the "
+              f"captured graphs ({e.loop_stats()}, {e._loop.captures} captures)")
+    if hot == tokens[2]:
+        _fail("lora serving: the hot load did not change adapter 2's tokens")
+    out["armed_loop4"] = _public(loop)
+    out["armed_loop4"]["lora_stats"] = e.lora_stats()
+    del e
+    kw = armed_kw()
+    kw["adapters"].load(2, tree, name="hot")
+    cold = ContinuousBatcher(cfg, model, **kw)
+    rid = cold.submit(prompts[2], max_new_tokens=LORA_NEW, adapter=2)
+    if cold.run()[rid] != hot:
+        _fail("lora serving: after the hot load a fold gave other tokens than a "
+              "fresh engine built with the new tree")
+    del cold
+    out["hot_load_in_fold_equals_fresh_engine"] = True
+    lap("loop_and_hot_load")
+    # Speculative rounds, the base model as draft, loop 1 and 4 (check 9).
+    spec, cap5 = {}, {}
+    for loop in (1, LOOP_STEPS):
+        e = ContinuousBatcher(cfg, model, **armed_kw(
+            spec=True, spec_k=SPEC_K, spec_min_accept=0.0, draft_cfg=cfg,
+            draft_params=model, loop_steps=loop))
+        e.warm()
+        ctx = (_captured(lm_mod, "paged_decode_attention", 3 * cfg.num_layers, cap5,
+                         steps=SPEC_K + 1) if loop == 1 else contextlib.nullcontext())
+        with ctx:
+            run = _serve_legged(e, four, LORA_NEW, da, four_ids)
+        verify = {k: run["launches_at_steps"].get(f"{k} steps {SPEC_K + 1}", 0)
+                  for k in ("paged_attention", "qkv_rope")}
+        if (verify["qkv_rope"] or not run["verify_rounds"]
+                or verify["paged_attention"] != run["verify_rounds"] * cfg.num_layers):
+            _fail(f"lora spec loop {loop}: K1/K2 at steps {SPEC_K + 1} launched "
+                  f"{verify}, not {run['verify_rounds']} verify rounds x "
+                  f"{cfg.num_layers} layers of K1 and no K2")
+        spec[f"loop{loop}"] = {**_public(run), "verify_launches": verify,
+                               "spec_stats": e.spec_stats(), "tokens": toks(run)}
+        del e
+    if spec["loop1"]["tokens"] != spec[f"loop{LOOP_STEPS}"]["tokens"]:
+        _fail("lora spec: loop_steps 4 gave other tokens than loop_steps 1")
+    spec_tokens = spec["loop1"].pop("tokens")
+    spec[f"loop{LOOP_STEPS}"].pop("tokens")
+    spec["tokens_equal_spec_off_share"] = sum(
+        a == b for t, u in zip(spec_tokens, tokens) for a, b in zip(t, u)
+    ) / (LORA_NEW * len(four))
+    out["spec"] = spec
+    lap("spec")
+    k1_steps5 = _path_k1(da, cap5, f"lora spec: layer 0, verify round 4, steps {SPEC_K + 1}")
+    del cap5
+    # int8 KV, and "int8-sim" KV against the bf16 tokens (check 10).
+    out["kv"] = {}
+    for kv in ("int8", "int8-sim"):
+        c8 = dataclasses.replace(cfg, kv_dtype=kv)
+        m8 = lm_mod.DecoderLM(c8, device="cuda", seed=seed)
+        m8.load_state_dict(model.state_dict())
+        e = ContinuousBatcher(c8, m8, **armed_kw())
+        run = _serve_timed(e, four, LORA_SHORT, da, four_ids)
+        got = toks(run)
+        want = [t[:LORA_SHORT] for t in tokens[:4]]
+        if kv == "int8":
+            bad = run["launches"]["qkv_rope"] or run["launches"]["qkv_rope_int8"]
+            if bad or not run["launches"]["paged_attention_int8"]:
+                _fail(f"lora int8 KV launched {run['launches']}")
+            if not all(0 <= t < cfg.vocab_size for seq in got for t in seq):
+                _fail("lora int8 KV: a token outside the vocabulary")
+            out["kv"][kv] = {"tokens_equal_bf16_share": sum(
+                a == b for t, u in zip(got, want) for a, b in zip(t, u)
+            ) / (LORA_SHORT * len(four)), "launches": run["launches"]}
+        else:
+            if got != want:
+                _fail("lora int8-sim KV gave other tokens than bf16")
+            out["kv"][kv] = {"tokens_equal_bf16": True}
+        del e, m8
+    lap("kv_int8")
+    del model, model_u
+    torch.cuda.empty_cache()
+    k1_steps1["launches"] = launches["paged_attention"]
+    k1_steps5["launches"] = spec["loop1"]["verify_launches"]["paged_attention"]
+    out["kernels"] = {"paged_attention_lora": k1_steps1,
+                      "paged_attention_lora_spec_verify": k1_steps5}
+    return out
 
 
 # -- HuggingFace import and MoE serving ---------------------------------------
@@ -2441,18 +2884,21 @@ def gpt2_kernel_phase(da, seed: int) -> tuple[list, list]:
 
 
 MOE_FIELDS = dict(num_experts=8, moe_every=2, expert_top_k=2)
+# The MoE leg's depth (cut from TinyLlama's 22 to keep the script inside
+# its time budget; the widths stay TinyLlama-1.1B's).
+MOE_LAYERS = 8
 # Capacity factors of the MoE phase: the default, and E / k x 2, under
 # which capacity = T and no token is ever dropped.
 MOE_CAPACITIES = (1.25, 4.0)
 
 
 def _moe_cfg(LMConfig, capacity_factor: float):
-    """TinyLlama-1.1B widths, 22 layers, with 8 gelu experts on every
-    second block (11 MoE layers), top-2."""
+    """TinyLlama-1.1B widths, MOE_LAYERS layers, with 8 gelu experts on
+    every second block, top-2."""
     import dataclasses
 
-    return dataclasses.replace(_tinyllama_cfg(LMConfig), **MOE_FIELDS,
-                               capacity_factor=capacity_factor)
+    return dataclasses.replace(_tinyllama_cfg(LMConfig), num_layers=MOE_LAYERS,
+                               **MOE_FIELDS, capacity_factor=capacity_factor)
 
 
 def _record_moe_inputs(model, sink: list):
@@ -2613,8 +3059,8 @@ def moe_serving_phase(ContinuousBatcher, LMConfig, DecoderLM, make_generate_fn,
     prompts = _serving_prompts(_tinyllama_cfg(LMConfig), seed)
     gen_prompts = _generate_prompts(_tinyllama_cfg(LMConfig), seed)[:, :128]
     new = 32
-    out = {"model": "TinyLlama-1.1B widths, 22 layers, 8 gelu experts on every "
-                    "second block, top-2, random bf16 weights"}
+    out = {"model": f"TinyLlama-1.1B widths, {MOE_LAYERS} layers, 8 gelu experts "
+                    f"on every second block, top-2, random bf16 weights"}
     for cf in MOE_CAPACITIES:
         cfg = _moe_cfg(LMConfig, cf)
         recorded = cf == 1.25
@@ -3686,6 +4132,7 @@ def main() -> int:
         return 0
     from walkai_nos_tpu_torch.models import hf as hf_mod
     from walkai_nos_tpu_torch.models import lm as lm_mod
+    from walkai_nos_tpu_torch.models import lora as lora_mod
     from walkai_nos_tpu_torch.models.lm import DecoderLM, LMConfig
     from walkai_nos_tpu_torch.models import data as data_mod
     from walkai_nos_tpu_torch.models import speculative as spec_mod
@@ -3809,6 +4256,21 @@ def main() -> int:
     unfused = unfused_phase(ContinuousBatcher, DecoderLM, da, cfg, args.seed)
     print(json.dumps({"unfused": unfused}), flush=True)
     phase_end_s['unfused'] = time.monotonic() - start
+    lora = lora_serving_phase(ContinuousBatcher, lm_mod, lora_mod, da, cfg,
+                              serve_prompts, args.seed,
+                              dict(serve, tokens=serve_tokens))
+    print(json.dumps({"lora_serving": lora}), flush=True)
+    free = lora["lora_free"]
+    print(f"LoRA serving on {smi}: armed {lora['armed']['decode_tokens_per_s']:.2f} "
+          f"tokens/s, {lora['armed']['step_ms']:.2f} ms a step (LoRA-free: fused "
+          f"{serve['decode_tokens_per_s']:.2f} tokens/s, "
+          f"{serve['step_ms']:.2f} ms, the LM serving leg's; unfused "
+          f"{free['unfused']['decode_tokens_per_s']:.2f} tokens/s, "
+          f"{free['unfused']['step_ms']:.2f} ms); folded step "
+          f"{lora['armed_loop4'].get('fold_ms_per_step', float('nan')):.3f} ms armed, "
+          f"{loop_serve['fold_ms_per_step']:.3f} ms LoRA-free (the loop leg's); "
+          f"lora_stats {json.dumps(lora['lora_stats'])}", flush=True)
+    phase_end_s['lora_serving'] = time.monotonic() - start
     int8_serve = int8_serving_phase(ContinuousBatcher, DecoderLM, lm_mod, da, cfg,
                                     serve_prompts, serve_tokens, args.seed)
     int8_serve["quant_dense"] = quant_dense
@@ -4011,6 +4473,17 @@ def main() -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             })
+    # The LoRA leg runs K1 without injection, at steps 1 (armed decode) and
+    # k+1 (armed verify), each checked and timed on one of its calls.
+    for name, t in lora["kernels"].items():
+        source, replaces = decode_sites["paged_attention"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{src}{source}",
+            "replaces": replaces, "launches": t["launches"],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({
@@ -4023,7 +4496,7 @@ def main() -> int:
             "generate": generate, "speculative": speculative,
             "dense_serving": dense_serve, "exactness_f32": exact,
             "spec_exactness_f32": spec_exact,
-            "unfused": unfused, "int8_serving": int8_serve,
+            "unfused": unfused, "lora_serving": lora, "int8_serving": int8_serve,
             "sim_exactness": sim_exact, "vit_serving": vit_serve,
             "vit_training": vit_train, "lm_training": lm_train, "kernels": kernels,
             "phase_end_s": phase_end_s,

@@ -214,6 +214,16 @@ class BlockPool:
         self.table[s, :] = 0
         self.set_gauges()
 
+    def drop_tagged(self, tag: bytes) -> None:
+        """Free every parked prefix-index block under an adapter's tag
+        (`PrefixIndex.drop_tagged`): a reloaded or unloaded adapter's
+        cached rows must never be matched again."""
+        if self.prefix is None:
+            return
+        self.free_blocks.extend(self.prefix.drop_tagged(tag))
+        self.obs.prefix_cached_tokens.set(self.prefix.cached_tokens)
+        self.set_gauges()
+
     def set_gauges(self) -> None:
         """Block-pool watermark gauges: free/used/parked split plus
         the low watermark of reclaimable blocks (free + evictable

@@ -15,8 +15,10 @@ job rescheduled onto another card resumes where it stopped:
 - `restore(template)` loads the newest step into a freshly initialised
   `TrainState` in place (on the template's device) and returns it.
 
-The LoRA adapter npz helpers of the JAX module belong to the LoRA slice
-and are not here.
+LoRA adapters (`models/lora.py` trees) get JAX's single-file npz format
+(`save_lora_adapter` / `load_lora_adapter`): the same flat
+"block0/qkv/a" keys and `__name__` / `__alpha__` entries, so a file
+written by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -26,11 +28,12 @@ import shutil
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from walkai_nos_tpu_torch.models.train import TrainState
 
-__all__ = ["CheckpointManager"]
+__all__ = ["CheckpointManager", "load_lora_adapter", "save_lora_adapter"]
 
 _FILE = "state.pt"
 
@@ -134,3 +137,43 @@ class CheckpointManager:
 
     def close(self) -> None:
         self.wait()
+
+
+# -- LoRA adapter save/load (models/lora.py trees) ---------------------
+
+
+def save_lora_adapter(
+    path: str | Path, tree: dict, *, name: str = "", alpha: float | None = None,
+) -> None:
+    """Write one adapter tree ({"block{i}": {proj: {"a": [in, r], "b":
+    [r, out]}}}) as a flat .npz ("block0/qkv/a" keys) with its name and
+    alpha. The stored factors are the raw ones: alpha folds into B at
+    load (`AdapterSet.load`), not on disk."""
+    flat: dict[str, np.ndarray] = {}
+    for blk, projs in tree.items():
+        for proj, pair in projs.items():
+            flat[f"{blk}/{proj}/a"] = np.asarray(pair["a"], np.float32)
+            flat[f"{blk}/{proj}/b"] = np.asarray(pair["b"], np.float32)
+    flat["__name__"] = np.array(str(name))
+    if alpha is not None:
+        flat["__alpha__"] = np.asarray(float(alpha), np.float32)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **flat)
+
+
+def load_lora_adapter(path: str | Path) -> tuple[dict, str, float | None]:
+    """Read a `save_lora_adapter` file back: (tree, name, alpha), the
+    argument triple `AdapterSet.load` / `register` take."""
+    with np.load(Path(path), allow_pickle=False) as z:
+        tree: dict[str, dict] = {}
+        name, alpha = "", None
+        for key in z.files:
+            if key == "__name__":
+                name = str(z[key])
+            elif key == "__alpha__":
+                alpha = float(z[key])
+            else:
+                blk, proj, ab = key.rsplit("/", 2)
+                tree.setdefault(blk, {}).setdefault(proj, {})[ab] = z[key]
+    return tree, name, alpha

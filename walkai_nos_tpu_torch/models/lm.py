@@ -56,9 +56,9 @@ model. Attention routes exactly as `CausalAttention.__call__`
 does in JAX:
 
 - paged, a short step (<= MAX_KERNEL_STEPS positions) on a CUDA tensor
-  with `fused_qkv=True` takes the fused QKV + rotary + paged attention
-  kernels (`ops/decode_attention.fused_qkv_paged_attention`), then
-  scatters the fresh rows;
+  with `fused_qkv=True` and no adapters takes the fused QKV + rotary +
+  paged attention kernels (`ops/decode_attention.fused_qkv_paged_attention`),
+  then scatters the fresh rows;
 - paged otherwise, the unfused composition: projection, rotary, scatter,
   then the paged attention kernel for short steps (plain version on the
   CPU) or, for wide prefill chunks, a gather of the slot's blocks and
@@ -67,6 +67,16 @@ does in JAX:
   `dynamic_update_slice` clamping, then the streamed dense kernel
   (`ops/decode_attention.decode_attention`) for a short step of a GQA
   model or with `decode_kernel`, else `_masked_cache_attention`.
+
+Multi-LoRA (`models/lora.py`): a cache forward given `adapters=(tree,
+ids)` (the engine's stacked per-block A/B tensors and per-row adapter
+ids) adds `lora_delta`, cast to the projection output's dtype, onto
+`qkv` and `out_proj` in every block and onto `gate`/`fc1`/`fc2` in a
+non-MoE block (an MoE block's MLP takes none), as JAX's `_apply_lora`
+does. An armed paged forward leaves the fused route (the deltas add
+onto the projection's output, which the fused kernel never writes out)
+and takes the unfused composition, K1 without injection for short
+steps.
 
 Parameter layout follows flax (see `models/convert.py`): Dense kernels
 are stored [in, out], the layout the fused QKV kernel reads.
@@ -87,6 +97,7 @@ from torch.utils.checkpoint import checkpoint
 from walkai_nos_tpu_torch.device import resolve_device
 from walkai_nos_tpu_torch.models.convert import load_flax_params
 from walkai_nos_tpu_torch.models.data import to_device
+from walkai_nos_tpu_torch.models.lora import lora_delta
 from walkai_nos_tpu_torch.models.moe import MoEMlp, aux_loss_from_intermediates
 from walkai_nos_tpu_torch.models.train import TrainState, make_optimizer
 from walkai_nos_tpu_torch.ops.attention import flash_attention
@@ -412,6 +423,20 @@ class QuantDense(nn.Module):
 _QUANT_DENSE_NAMES = ("qkv", "out_proj", "gate", "fc1", "fc2")
 
 
+def _apply_lora(y, x, adapters, name: str):
+    """JAX `_apply_lora`: add projection `name`'s batched LoRA delta on
+    `x` (the projection's input) to its output `y`. `adapters` is (this
+    block's stacked A/B tree, per-row adapter ids) or None; adapter 0's
+    B slices are zero, so base rows add an exact zero."""
+    if adapters is None:
+        return y
+    tree, ids = adapters
+    proj = None if tree is None else tree.get(name)
+    if proj is None:
+        return y
+    return y + lora_delta(x, proj, ids).to(y.dtype)
+
+
 def _dense(cfg: LMConfig, d_in: int, d_out: int, *, device, gen,
            param_dtype=None):
     """The decode-path projection factory: `Dense` at w_dtype="model",
@@ -557,17 +582,20 @@ class CausalAttention(nn.Module):
         o = flash_attention(q, k, v, causal=True)
         return self.out_proj(o.transpose(1, 2).reshape(b, s, c.hidden_dim))
 
-    def forward(self, x, kv, table, index):
+    def forward(self, x, kv, table, index, adapters=None):
         """kv: the layer's (k, v, k_scales, v_scales) from the cache's
         `layer(i)`. `table` None means a dense cache: k / v are then the
-        layer's [batch, kv_heads, cache_len, head_dim] K/V (no scales)."""
+        layer's [batch, kv_heads, cache_len, head_dim] K/V (no scales).
+        `adapters`: (this block's LoRA tree, per-row ids) or None; an
+        armed call takes the unfused route."""
         c = self.cfg
         b, s = x.shape[0], x.shape[1]
         theta = c.rope_theta if c.rope else None
         k_pool, v_pool, ks, vs = kv
         if table is None:
-            o = self._dense(x, k_pool, v_pool, index)
-        elif c.fused_qkv and s <= MAX_KERNEL_STEPS and x.is_cuda:
+            o = self._dense(x, k_pool, v_pool, index, adapters)
+        elif (c.fused_qkv and adapters is None and s <= MAX_KERNEL_STEPS
+              and x.is_cuda):
             o, k_new, v_new = fused_qkv_paged_attention(
                 x.to(c.compute_dtype), self.qkv.kernel, self.qkv.bias,
                 k_pool, v_pool, table, index,
@@ -582,18 +610,19 @@ class CausalAttention(nn.Module):
                 k_scale_pool=ks, v_scale_pool=vs, quant=c.kv_quant,
             )
         else:
-            o = self._unfused(x, kv, table, index)
+            o = self._unfused(x, kv, table, index, adapters)
         o = o.transpose(1, 2).reshape(b, s, c.hidden_dim)
-        return self.out_proj(o)
+        return _apply_lora(self.out_proj(o), o, adapters, "out_proj")
 
-    def _unfused(self, x, kv, table, index):
-        """Projection -> split -> rotary -> scatter (quantizing) ->
-        paged attention (JAX `_paged_decode_attention` +
+    def _unfused(self, x, kv, table, index, adapters):
+        """Projection (+ LoRA) -> split -> rotary -> scatter (quantizing)
+        -> paged attention (JAX `_paged_decode_attention` +
         `_paged_scatter_and_attend`)."""
         c = self.cfg
         k_pool, v_pool, ks, vs = kv
         q, k, v = split_qkv(
-            self.qkv(x), index, num_heads=c.num_heads, kv_heads=c.kv_heads,
+            _apply_lora(self.qkv(x), x, adapters, "qkv"), index,
+            num_heads=c.num_heads, kv_heads=c.kv_heads,
             rope_theta=c.rope_theta if c.rope else None,
         )
         scatter_paged_rows(
@@ -612,7 +641,7 @@ class CausalAttention(nn.Module):
             v_all = gather_paged_cache(v_pool, table)
         return _masked_cache_attention(q, k_all, v_all, index)
 
-    def _dense(self, x, k_cache, v_cache, idx):
+    def _dense(self, x, k_cache, v_cache, idx, adapters):
         """Dense-cache decoding (JAX `_decode_attention`): projection ->
         split -> rotary at idx + r -> cache write -> attention. The write
         lands at min(idx, cache_len - steps), as XLA's dynamic_update_slice
@@ -622,7 +651,8 @@ class CausalAttention(nn.Module):
         c = self.cfg
         steps = x.shape[1]
         q, k, v = split_qkv(
-            self.qkv(x), idx, num_heads=c.num_heads, kv_heads=c.kv_heads,
+            _apply_lora(self.qkv(x), x, adapters, "qkv"), idx,
+            num_heads=c.num_heads, kv_heads=c.kv_heads,
             rope_theta=c.rope_theta if c.rope else None,
         )
         batch, kvh, cache_len, hd = k_cache.shape
@@ -670,21 +700,25 @@ class DecoderBlock(nn.Module):
             self.fc1 = _dense(cfg, cfg.hidden_dim, cfg.mlp_width, **kw)
             self.fc2 = _dense(cfg, cfg.mlp_width, cfg.hidden_dim, **kw)
 
-    def _mlp(self, h):
+    def _mlp(self, h, adapters=None):
         if self.cfg.mlp == "swiglu":
-            h = F.silu(self.gate(h)) * self.fc1(h)
+            h = (F.silu(_apply_lora(self.gate(h), h, adapters, "gate"))
+                 * _apply_lora(self.fc1(h), h, adapters, "fc1"))
         else:
-            h = F.gelu(self.fc1(h), approximate="tanh")
-        return self.fc2(h)
+            h = F.gelu(_apply_lora(self.fc1(h), h, adapters, "fc1"),
+                       approximate="tanh")
+        return _apply_lora(self.fc2(h), h, adapters, "fc2")
 
-    def forward(self, x, kv, table, index, moe_rows=None):
+    def forward(self, x, kv, table, index, moe_rows=None, adapters=None):
         """The cache forward. An MoE block routes the first `moe_rows`
         batch rows (None: all) and drops its aux loss: JAX's decode
-        forward sows it and nothing reads it."""
-        x = x + self.attn(self.norm1(x), kv, table, index)
+        forward sows it and nothing reads it. `adapters` (this block's
+        LoRA tree, per-row ids) puts deltas on the attention's
+        projections and, in a non-MoE block, on the MLP's."""
+        x = x + self.attn(self.norm1(x), kv, table, index, adapters)
         h = self.norm2(x)
         if self.moe is None:
-            return x + self._mlp(h)
+            return x + self._mlp(h, adapters)
         return x + self.moe(h, moe_rows)[0]
 
     def sequence(self, x):
@@ -901,7 +935,7 @@ class DecoderLM(nn.Module):
 
     def forward(self, tokens, cache=None, table=None, index=None, *,
                 intermediates: list | None = None,
-                moe_rows: int | None = None):
+                moe_rows: int | None = None, adapters=None):
         """tokens [batch, steps] -> f32 logits [batch, steps, vocab].
 
         With no cache: the full causal forward over positions 0 ..
@@ -918,10 +952,17 @@ class DecoderLM(nn.Module):
 
         `moe_rows` (cache forwards): the MoE layers route only the first
         `moe_rows` batch rows, the others get no MoE output (None: all
-        rows route)."""
+        rows route).
+
+        `adapters` (cache forwards): (tree, ids), the stacked LoRA tensors
+        under "block{i}" -> projection -> {"lora_a", "lora_b"} and the
+        per-row adapter ids [batch] (`models/lora.py`); None: no deltas."""
         if cache is None:
-            if table is not None or index is not None or moe_rows is not None:
-                raise ValueError("table=, index= and moe_rows= go with a cache")
+            if (table is not None or index is not None or moe_rows is not None
+                    or adapters is not None):
+                raise ValueError(
+                    "table=, index=, moe_rows= and adapters= go with a cache"
+                )
             return self._sequence(tokens, intermediates)
         c = self.cfg
         steps = tokens.shape[1]
@@ -945,7 +986,9 @@ class DecoderLM(nn.Module):
             rows = start[..., None] + torch.arange(steps, device=x.device)
             x = x + self.pos_embed[0][rows].to(x.dtype)
         for i, block in enumerate(self.blocks):
-            x = block(x, cache.layer(i), table, index, moe_rows)
+            adp = (None if adapters is None
+                   else (adapters[0].get(f"block{i}"), adapters[1]))
+            x = block(x, cache.layer(i), table, index, moe_rows, adp)
         if dense:
             cache.index += steps
         return self.head(self.norm(x))

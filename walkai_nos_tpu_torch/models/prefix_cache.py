@@ -281,6 +281,31 @@ class PrefixIndex:
         if node.refcount == 0:
             self._parked -= 1
 
+    def drop_tagged(self, tag: bytes) -> list[int]:
+        """Unlink every node whose keys carry the adapter tag `tag` (not
+        the base model's empty tag) and return their blocks: the K/V rows
+        an adapter's replaced weights wrote. Every such node must be
+        parked (refcount 0): the engine swaps an adapter only while no
+        request uses it."""
+        if not tag:
+            raise ValueError("drop_tagged needs an adapter's tag, not b''")
+        blocks: list[int] = []
+
+        def drop(node: PrefixNode) -> None:
+            for child in list(node.children.values()):
+                drop(child)
+            if node.refcount:
+                raise RuntimeError(
+                    f"prefix block {node.block} under the tag is still pinned"
+                )
+            self.discard(node)
+            blocks.append(node.block)
+
+        for key, node in list(self._root.children.items()):
+            if key.startswith(tag):
+                drop(node)
+        return blocks
+
     # -- stats ---------------------------------------------------------
 
     @property

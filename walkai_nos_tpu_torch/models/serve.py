@@ -48,6 +48,18 @@ leave at EOS or their budget, without stopping the batch.
   flax tree is quantized at build (`quantize_lm_params`, on the engine's
   own copy; idempotent), the draft's too; a `DecoderLM` must already be
   built for the config. `quant_stats()` reports what the knobs did.
+- **Multi-LoRA serving** (`adapters=AdapterSet(...)`, paged only,
+  `models/lora.py`): every request carries an adapter id (`submit(...,
+  adapter=k)`; 0 is the base model), the lane applies each row's deltas
+  and each decode step, verify and fold each slot's, with the stacked
+  A/B tensors and per-slot ids on the device. Armed forwards take the
+  unfused attention route. Prefix-index keys carry the adapter's tag, so
+  adapters never share cached K/V. `load_adapter` / `unload_adapter`
+  swap an adapter's weights between dispatches (refused while a request
+  uses it) by writing the device tensors in place, which the CUDA-graph
+  folds read; they also drop the adapter's cached prefix blocks, whose
+  rows the old weights wrote (the JAX engine keeps those). `lora_stats()`
+  reports the set.
 
 What differs from the JAX engine, and why:
 
@@ -69,9 +81,9 @@ What differs from the JAX engine, and why:
 - Sampled streams are counter-based (`models/decode.py`), not JAX's
   threefry bits; greedy streams match the JAX engine token for token.
 - The engine's features of later slices raise NotImplementedError at
-  construction: `adapters`, `sp_prefill`, `capture`, and the `obs`
-  telemetry planes, as does any of their options (`sp_*`, `slo_*`) set
-  to other than its JAX default, and `prompt_bucket` in paged mode,
+  construction: `sp_prefill`, `capture`, and the `obs` telemetry
+  planes, as does any of their options (`sp_*`, `slo_*`) set to other
+  than its JAX default, and `prompt_bucket` in paged mode,
   where it does nothing (the engine keeps only the counters its stats
   views read, `models/serve_stats.py`).
 """
@@ -87,6 +99,7 @@ import numpy as np
 import torch
 
 from walkai_nos_tpu_torch.models.block_pool import BlockPool
+from walkai_nos_tpu_torch.models.lora import adapter_tag
 from walkai_nos_tpu_torch.models.lm import (
     DecoderLM,
     DenseCache,
@@ -165,7 +178,6 @@ class ContinuousBatcher:
         device=None,
     ) -> None:
         for on, what, item in (
-            (adapters is not None, "adapters", "LoRA"),
             (sp_prefill, "sp_prefill=True", "sp_prefill"),
             (capture is not None, "capture", "capture"),
             (not isinstance(obs, bool) or slo_objectives is not None
@@ -235,6 +247,20 @@ class ContinuousBatcher:
                 cfg, ragged_decode=True, cache_len=cache_len
             )
             self.pool = None
+        # Multi-LoRA (paged only: the per-slot ids are paged slot state).
+        if adapters is not None:
+            if not paged:
+                raise ValueError(
+                    "adapters require the paged engine (per-slot adapter "
+                    "ids ride the paged slot state)"
+                )
+            if not adapters.compatible(self.cfg):
+                raise ValueError(
+                    "AdapterSet dimensions do not match the engine config "
+                    "(build the set from the same LMConfig handed to the "
+                    "engine)"
+                )
+        self._adapters = adapters
         # Speculative serving (paged only): the draft holds its own paged
         # pool with the same block count, addressed through the same
         # host tables.
@@ -295,7 +321,24 @@ class ContinuousBatcher:
             PagedCache.zeros(self.cfg, self.device) if paged
             else DenseCache.zeros(self.cfg, slots, self.device)
         )
-        self._state = SlotState.zeros(cache, slots, self.device)
+        self._state = SlotState.zeros(
+            cache, slots, self.device, armed=adapters is not None
+        )
+        # The device copy of the set's stacks: fixed tensors, rewritten in
+        # place by `_upload_adapters` (the folds' graphs read them).
+        self._lora = None
+        if adapters is not None:
+            self._lora = {
+                blk: {
+                    proj: {
+                        name: torch.tensor(arr, device=self.device)
+                        for name, arr in pair.items()
+                    }
+                    for proj, pair in projs.items()
+                }
+                for blk, projs in adapters.host_tree().items()
+            }
+            self.obs.lora_resident.set(len(adapters.resident()))
         self._draft = self._d_cache = None
         if self._spec:
             self._draft = DecoderLM.from_params(
@@ -310,7 +353,7 @@ class ContinuousBatcher:
                 self.model, self._state, slots=slots, nlog=self._nlog,
                 loop_steps=loop_steps, chunk_steps=chunk_steps,
                 draft=self._draft, d_cache=self._d_cache,
-                spec_k=spec_k if self._spec else 0,
+                spec_k=spec_k if self._spec else 0, lora=self._lora,
             )
         # Trailing run averages behind the cb_loop_steps_per_sync gauge.
         self._loop_sync_n = 0
@@ -340,13 +383,14 @@ class ContinuousBatcher:
         top_p: float = 1.0,
         seed: int | None = None,
         trace_id: str | None = None,
-        adapter: int = 0,
+        adapter: int | None = 0,
     ) -> int:
         """Queue a generation; returns a request id. Greedy at
         temperature 0, else seeded sampling (`seed` defaults to the
-        request id). Rejections raise ValueError and count under the
-        JAX engine's reasons: bad_request | oversize_reject |
-        pool_overflow | draining."""
+        request id); `adapter` names a resident adapter of an armed
+        engine (0, or None: the base model). Rejections raise ValueError
+        and count under the JAX engine's reasons: bad_request |
+        oversize_reject | pool_overflow | draining."""
         if self._draining:
             raise self._reject(
                 "draining",
@@ -372,12 +416,22 @@ class ContinuousBatcher:
                 "bad_request",
                 f"max_new_tokens must be >= 1; got {max_new_tokens}",
             )
+        adapter = int(adapter) if adapter else 0
         if adapter:
-            raise self._reject(
-                "bad_request",
-                f"adapter {adapter} requested but the engine has no "
-                f"adapter set (construct with adapters=)",
-            )
+            # Unknown ids fail here, per request: the device gather would
+            # serve them some other adapter's deltas.
+            if self._adapters is None:
+                raise self._reject(
+                    "bad_request",
+                    f"adapter {adapter} requested but the engine has no "
+                    f"adapter set (construct with adapters=)",
+                )
+            if not self._adapters.has(adapter):
+                raise self._reject(
+                    "bad_request",
+                    f"adapter {adapter} is not loaded (resident: "
+                    f"{sorted(self._adapters.resident())})",
+                )
         prompt = np.asarray(prompt).reshape(-1)
         if len(prompt) == 0:
             raise self._reject("bad_request", "empty prompt")
@@ -425,9 +479,12 @@ class ContinuousBatcher:
             seed=rid if seed is None else seed,
             submitted_at=time.monotonic(),
             trace_id=None if trace_id is None else str(trace_id)[:64],
+            adapter=adapter,
         )
         self._requests[rid] = req
         self._pending.append(req)
+        if self._adapters is not None:
+            self.obs.lora_requests.inc(labels={"adapter": str(adapter)})
         return rid
 
     def _reject(self, reason: str, message: str) -> ValueError:
@@ -528,7 +585,7 @@ class ContinuousBatcher:
         """Pop every finished request with its serving record: tokens,
         ttft_s (submit -> first token known to the host), wall_s,
         truncated, trace_id, fingerprint (None: no capture plane) and
-        adapter (always the base model, 0)."""
+        adapter."""
         done = {
             rid: {
                 "tokens": r.tokens,
@@ -537,7 +594,7 @@ class ContinuousBatcher:
                 "truncated": r.truncated,
                 "trace_id": r.trace_id,
                 "fingerprint": None,
-                "adapter": 0,
+                "adapter": r.adapter,
             }
             for rid, r in self._requests.items()
             if r.done
@@ -712,6 +769,75 @@ class ContinuousBatcher:
             "exits": exits,
         }
 
+    def lora_stats(self) -> dict:
+        """Multi-LoRA view (the JAX engine's `lora_stats()`, without its
+        obs planes): the set's geometry, the resident adapters, and the
+        per-adapter request, gather-dispatch and load-time counters."""
+        if self._adapters is None:
+            return {"enabled": False}
+        aset = self._adapters
+        adapters = aset.resident()
+        return {
+            "enabled": True,
+            "capacity": aset.capacity,
+            "rank": aset.rank,
+            "adapters": adapters,
+            "requests_total": {
+                aid: int(self.obs.lora_requests.value({"adapter": aid}))
+                for aid in adapters
+            },
+            "gather_dispatches_total": int(self.obs.lora_gather.value()),
+            "load_seconds_total": round(
+                float(self.obs.lora_load_seconds.value()), 6
+            ),
+        }
+
+    # -- multi-LoRA adapter plane ----------------------------------------------
+
+    def _upload_adapters(self) -> None:
+        """Write the set's host stacks into the device tensors in place:
+        every later dispatch, and every fold graph captured earlier,
+        computes with the new values."""
+        for blk, projs in self._adapters.host_tree().items():
+            for proj, pair in projs.items():
+                for name, arr in pair.items():
+                    self._lora[blk][proj][name].copy_(torch.from_numpy(arr))
+
+    def load_adapter(
+        self, adapter: int, tree, *, name: str = "", alpha: float | None = None,
+    ) -> None:
+        """Hot-load low-rank deltas into adapter id `adapter` between
+        dispatches (refused while a queued, prefilling or live request
+        uses the id): requests submitted after it decode under the new
+        deltas. The id's cached prefix blocks are dropped."""
+        self._require_adapter_idle(adapter)
+        t0 = time.monotonic()
+        self._adapters.load(adapter, tree, name=name, alpha=alpha)
+        self._upload_adapters()
+        self.pool.drop_tagged(adapter_tag(adapter))
+        self.obs.lora_load_seconds.inc(time.monotonic() - t0)
+        self.obs.lora_resident.set(len(self._adapters.resident()))
+
+    def unload_adapter(self, adapter: int) -> None:
+        """Evict adapter `adapter` (back to the all-zero identity; its id
+        is free again). Refused while a request uses it."""
+        self._require_adapter_idle(adapter)
+        self._adapters.unload(adapter)
+        self._upload_adapters()
+        self.pool.drop_tagged(adapter_tag(adapter))
+        self.obs.lora_resident.set(len(self._adapters.resident()))
+
+    def _require_adapter_idle(self, adapter: int) -> None:
+        if self._adapters is None:
+            raise RuntimeError(
+                "engine is not adapter-armed (construct with adapters=)"
+            )
+        if any(r.adapter == adapter for r in self._requests.values() if not r.done):
+            raise RuntimeError(
+                f"adapter {adapter} has in-flight requests; drain them "
+                f"before swapping its weights"
+            )
+
     # -- admission -------------------------------------------------------------
 
     def _bucket_for(self, prompt_len: int) -> int:
@@ -771,7 +897,10 @@ class ContinuousBatcher:
             req = self._pending[0]
             true_len = len(req.prompt)
             total = self.pool.blocks_needed(true_len, req.max_new_tokens)
-            matched = prefix.match(req.prompt) if prefix is not None else []
+            # K/V rows are functions of the adapter's deltas: the tag
+            # namespaces the request's whole trie path.
+            tag = adapter_tag(req.adapter)
+            matched = prefix.match(req.prompt, tag) if prefix is not None else []
             new_need = total - len(matched)
             matched_parked = sum(1 for n in matched if n.refcount == 0)
             if self.pool.available(excluding_parked=matched_parked) < new_need:
@@ -798,7 +927,7 @@ class ContinuousBatcher:
                 walkable = prefix.matchable_blocks(true_len)
                 inserted = prefix.insert(
                     req.prompt, matched[-1] if matched else None,
-                    blocks[len(matched):walkable],
+                    blocks[len(matched):walkable], tag,
                 )
                 entry.nodes += inserted
                 entry.pending = list(inserted)
@@ -825,9 +954,11 @@ class ContinuousBatcher:
             )
         else:
             self._record_kv_snapshot()
-        emitted = decode_chunk(self.model, self._state, table, self.chunk_steps)
+        emitted = decode_chunk(
+            self.model, self._state, table, self.chunk_steps, self._lora
+        )
         if lane is not None:
-            run_lane(self.model, self._state, lane)
+            run_lane(self.model, self._state, lane, self._lora)
         host, ready = self._to_host(emitted)
         snapshot, fresh = self._epilogue(finished, self.chunk_steps)
         return host, ready, snapshot, fresh
@@ -838,6 +969,10 @@ class ContinuousBatcher:
         the prefill lane. Returns (table, lane or None, finished)."""
         self._ensure_decode_blocks(steps, advance=advance)
         self._record_kv_snapshot()
+        if self._adapters is not None:
+            # One per armed dispatch: every program gathers the stacks
+            # once per projection, whatever the batch's adapter mix.
+            self.obs.lora_gather.inc()
         # int32, the kernels' index type: no per-layer conversion.
         table = to_device(self.pool.table.astype(np.int32), self.device)
         if self._prefilling:
@@ -871,10 +1006,11 @@ class ContinuousBatcher:
         k = self._k_now
         table, lane, finished = self._paged_prologue(k + 1, advance=False)
         emitted, n_emit = spec_round(
-            self.model, self._draft, self._state, self._d_cache, table, k
+            self.model, self._draft, self._state, self._d_cache, table, k,
+            self._lora,
         )
         if lane is not None:
-            run_lane(self.model, self._state, lane)
+            run_lane(self.model, self._state, lane, self._lora)
             mirror_lane(self._draft, self._d_cache, lane)
         out = torch.cat([emitted, n_emit[:, None]], dim=1)
         snapshot, fresh = self._epilogue(finished, k + 1)
@@ -905,7 +1041,9 @@ class ContinuousBatcher:
         MoE layers (`moe_rows`); the rows past them start at the table's
         capacity, so their K/V writes go to the dump block and the
         scratch block holds what JAX's does (the last of its writers in
-        row order, as XLA's scatter writes them)."""
+        row order, as XLA's scatter writes them). On an armed engine every
+        chunk of a prompt runs under its request's adapter (`adapter`,
+        pad rows 0)."""
         W, P = self.prefill_chunk, self.prefill_lanes
         rows = min(1 << (len(self._prefilling) - 1).bit_length(), P)
         tok = np.zeros((P, W), np.int64)
@@ -917,10 +1055,12 @@ class ContinuousBatcher:
         topk = np.zeros(P, np.int64)
         topp = np.ones(P, np.float32)
         seed = np.zeros(P, np.int64)
+        adapter = np.zeros(P, np.int64)
         fin_rows, fin_slots, finished = [], [], []
         for r, entry in enumerate(self._prefilling):
             req = entry.req
             n = len(req.prompt)
+            adapter[r] = req.adapter
             if n - entry.consumed > W:
                 begin = entry.consumed
                 entry.consumed += W
@@ -949,7 +1089,7 @@ class ContinuousBatcher:
             name: to_device(a, dev) for name, a in (
                 ("tok", tok), ("start", start), ("table", tbl),
                 ("true_len", true_len), ("temp", temp), ("topk", topk),
-                ("topp", topp), ("seed", seed),
+                ("topp", topp), ("seed", seed), ("adapter", adapter),
                 ("fin_rows", np.asarray(fin_rows, np.int64)),
                 ("fin_slots", np.asarray(fin_slots, np.int64)),
             )
@@ -1090,6 +1230,8 @@ class ContinuousBatcher:
         kstep = (k + 1) if spec else self.chunk_steps
         self._ensure_decode_blocks(self.loop_steps * kstep, advance=False)
         self._record_kv_snapshot()
+        if self._adapters is not None:
+            self.obs.lora_gather.inc()
         live_mask = np.array(
             [r is not None and not r.done for r in self._slot_req], bool
         )

@@ -40,6 +40,12 @@ graph once, copies the outputs back once and synchronizes once. On the
 CPU the same bodies run as a Python loop reading the same flag: the
 plain version.
 
+A graph reads the storage it captured: the slot state, and on a
+LoRA-armed engine the per-slot adapter ids and the device LoRA tree
+(`lora`), are persistent tensors the engine writes in place, so a hot
+adapter load (`ContinuousBatcher.load_adapter`, a `copy_` into the same
+tensors) reaches every fold captured before it.
+
 The kernel wrappers count launches when they are called, which in a
 graph is once, at capture; the fold takes those capture-time counts back
 out and adds, at each replay, each kernel's launches per chunk or round
@@ -78,8 +84,9 @@ class DecodeLoop:
         self, model: DecoderLM, st: SlotState, *, slots: int, nlog: int,
         loop_steps: int, chunk_steps: int, draft: DecoderLM | None = None,
         d_cache: PagedCache | None = None, spec_k: int = 0,
+        lora: dict | None = None,
     ) -> None:
-        self.model, self.st = model, st
+        self.model, self.st, self.lora = model, st, lora
         self.draft, self.d_cache = draft, d_cache
         self.slots, self.nlog = slots, nlog
         self.L, self.cs = loop_steps, chunk_steps
@@ -135,7 +142,7 @@ class DecodeLoop:
     def _chunk(self, i: int, k: int) -> None:
         """Decode chunk i of the fold (JAX `loop_chunks`' body)."""
         cs, st = self.cs, self.st
-        emitted = decode_chunk(self.model, st, self.table, cs)
+        emitted = decode_chunk(self.model, st, self.table, cs, self.lora)
         self.buf[:, 1 + i * cs:1 + (i + 1) * cs].copy_(emitted[:, 1:])
         self.t.fill_(i + 1)
         done = (emitted == self.eos[:, None]).any(1) | ((i + 1) * cs >= self.owed)
@@ -147,7 +154,7 @@ class DecodeLoop:
         to the dump column."""
         st = self.st
         emitted, n_emit = spec_round(
-            self.model, self.draft, st, self.d_cache, self.table, k
+            self.model, self.draft, st, self.d_cache, self.table, k, self.lora
         )
         chosen = emitted[:, 1:]
         win = torch.arange(k + 1, device=self.dev)[None]

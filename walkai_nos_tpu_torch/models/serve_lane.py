@@ -38,6 +38,15 @@ its request with (seed, n); the lane draws the first token with n = 0.
 A speculative round draws its verified position j with n + j, so a
 committed token has the draw it would have had spec-off.
 
+Multi-LoRA (`models/lora.py`): on an armed engine `SlotState` carries
+per-slot adapter ids and each program takes the device LoRA tree
+(`lora`): the decode chunk and the speculative verify apply each slot's
+deltas, the lane each row's (pad rows id 0), and a finishing row writes
+its id into its slot. The speculative draft stays the base model: the
+exact-match acceptance keeps the committed stream the target's
+whatever the draft proposed. Idle slots keep the last id they held, as
+in JAX (their outputs are dropped).
+
 Every update of `SlotState` is in place (`copy_`, `+=`, index writes on
 the persistent tensors): the device-resident loop (`serve_graph.py`)
 captures these programs into CUDA graphs, which replay on the same
@@ -78,6 +87,7 @@ class _Request:
     completed_at: float = 0.0
     truncated: bool = False
     trace_id: str | None = None
+    adapter: int = 0
 
 
 @dataclass
@@ -101,8 +111,9 @@ class _Prefill:
 @dataclass
 class SlotState:
     """Per-slot device state: the cache, the per-slot cache index, the
-    next input token, the sampling knobs, and the draw counter. With a
-    `DenseCache` the index IS the cache's own (one tensor)."""
+    next input token, the sampling knobs, the draw counter, and on a
+    LoRA-armed engine the adapter ids. With a `DenseCache` the index IS
+    the cache's own (one tensor)."""
 
     cache: PagedCache | DenseCache
     index: torch.Tensor     # [slots] int32 cache index (write head)
@@ -112,10 +123,12 @@ class SlotState:
     topps: torch.Tensor     # [slots] f32
     seeds: torch.Tensor     # [slots] int64
     counters: torch.Tensor  # [slots] int64 tokens drawn so far
+    adapters: torch.Tensor | None = None  # [slots] int64 (armed engines)
 
     @classmethod
     def zeros(
-        cls, cache: PagedCache | DenseCache, slots: int, device
+        cls, cache: PagedCache | DenseCache, slots: int, device,
+        armed: bool = False,
     ) -> "SlotState":
         def z(dtype):
             return torch.zeros(slots, dtype=dtype, device=device)
@@ -125,7 +138,7 @@ class SlotState:
         return cls(
             cache, index, z(torch.int64), z(torch.float32),
             z(torch.int64), torch.ones(slots, device=device), z(torch.int64),
-            z(torch.int64),
+            z(torch.int64), z(torch.int64) if armed else None,
         )
 
 
@@ -140,19 +153,23 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 @torch.inference_mode()
 def decode_chunk(
-    model: DecoderLM, st: SlotState, table: torch.Tensor, chunk_steps: int
+    model: DecoderLM, st: SlotState, table: torch.Tensor, chunk_steps: int,
+    lora: dict | None = None,
 ) -> torch.Tensor:
     """Advance every slot `chunk_steps` tokens; returns [slots,
     1 + chunk_steps] int64 tokens (column 0 = the chunk's input).
-    `table` None: the dense cache, which advances its own index."""
+    `table` None: the dense cache, which advances its own index. `lora`:
+    the device LoRA tree of an armed engine, applied per slot."""
     first = st.tokens.clone()
     tok = first
     out = []
+    adp = None if lora is None else (lora, st.adapters)
     for _ in range(chunk_steps):
         if table is None:
             logits = model(tok[:, None], st.cache)
         else:
-            logits = model(tok[:, None], st.cache, table, st.index)
+            logits = model(tok[:, None], st.cache, table, st.index,
+                           adapters=adp)
             st.index += 1
         tok = sample_rows(
             logits[:, -1].float(), st.temps, st.topks, st.topps,
@@ -167,7 +184,7 @@ def decode_chunk(
 @torch.inference_mode()
 def spec_round(
     model: DecoderLM, draft: DecoderLM, st: SlotState, d_cache: PagedCache,
-    table: torch.Tensor, k: int,
+    table: torch.Tensor, k: int, lora: dict | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One batched draft-and-verify round over every slot (JAX
     `spec_core`). Entering with both pools' write heads at idx0 =
@@ -178,7 +195,8 @@ def spec_round(
     counter + j, so the chain is what the plain chunk would draw;
     `accept_tokens` keeps the longest agreeing prefix plus the target's
     own next token. Both heads move to idx0 + n_emit (one index serves
-    both pools); rows past the head are masked until overwritten.
+    both pools); rows past the head are masked until overwritten. `lora`
+    arms the target's verify only; the draft proposes from the base.
 
     Returns (emitted [slots, k+2] int64, n_emit [slots] int64): column 0
     is the round's input token, columns 1..k+1 the chosen chain, of
@@ -195,7 +213,8 @@ def spec_round(
     drafts = torch.stack(drafts, dim=1)  # [slots, k]
     draft(drafts[:, k - 1:], d_cache, table, d_idx)
     t_in = torch.cat([last[:, None], drafts], dim=1)
-    t_logits = model(t_in, st.cache, table, idx0)
+    t_logits = model(t_in, st.cache, table, idx0,
+                     adapters=None if lora is None else (lora, st.adapters))
     chosen = torch.stack([
         sample_rows(
             t_logits[:, j].float(), st.temps, st.topks, st.topps,
@@ -211,16 +230,20 @@ def spec_round(
 
 
 @torch.inference_mode()
-def run_lane(model: DecoderLM, st: SlotState, lane: dict) -> None:
+def run_lane(
+    model: DecoderLM, st: SlotState, lane: dict, lora: dict | None = None
+) -> None:
     """One prefill-lane forward. `lane` holds device tensors: `tok`
     [P, W], `start` [P], `table` [P, nlog], `true_len` [P] and the
     per-row knobs `temp`/`topk`/`topp`/`seed` [P]; `fin_rows` / `fin_slots`
     (host-built, possibly empty) name the rows that finish their prompt
     and the slots they flip; `rows` (a host int) is how many leading rows
-    route through the MoE layers (the rows of JAX's lane)."""
+    route through the MoE layers (the rows of JAX's lane). An armed
+    engine passes `lora` and the lane its per-row ids `adapter` [P]."""
     tok = lane["tok"]
     logits = model(tok, st.cache, lane["table"], lane["start"],
-                   moe_rows=lane["rows"])
+                   moe_rows=lane["rows"],
+                   adapters=None if lora is None else (lora, lane["adapter"]))
     rows, slots = lane["fin_rows"], lane["fin_slots"]
     if rows.numel() == 0:
         return
@@ -239,6 +262,8 @@ def run_lane(model: DecoderLM, st: SlotState, lane: dict) -> None:
     st.topps[slots] = lane["topp"][rows]
     st.seeds[slots] = seed
     st.counters[slots] = 1
+    if lora is not None:
+        st.adapters[slots] = lane["adapter"][rows]
 
 
 @torch.inference_mode()

@@ -1,5 +1,5 @@
 """The serving engine's counters: the series `occupancy()`, `kv_stats()`,
-`prefix_stats()`, `spec_stats()` and `loop_stats()` read, under the JAX
+`prefix_stats()`, `spec_stats()`, `loop_stats()` and `lora_stats()` read, under the JAX
 engine's names.
 
 The JAX engine keeps these in its `obs/` telemetry planes (registry,
@@ -81,3 +81,8 @@ class EngineStats:
         self.loop_chunks = Counter()
         self.loop_exits = Counter()        # labels: reason
         self.loop_steps_per_sync = Gauge()
+        # Multi-LoRA serving (cb_lora_*).
+        self.lora_requests = Counter()     # labels: adapter
+        self.lora_gather = Counter()       # armed dispatches (and folds)
+        self.lora_load_seconds = Counter()
+        self.lora_resident = Gauge()
