@@ -61,6 +61,28 @@ the CUDA toolkit (`nvcc`). It:
    verify round and layer; in f32 at 4 layers (and with "int8-sim" KV and
    weights) every loop and spec leg must give the loop-off, spec-off
    tokens exactly;
+4c. (run right after 4) serves two long prompts (1536 and 1901 tokens)
+   and the six shortest serving prompts, 32 new tokens each, with
+   `sp_prefill` on and off (`sp_min_tokens` 1024, `sp_span` 4): the
+   tokens must be equal, `sp_stats()` must count 2 long requests, more
+   than 2 fanned rows and at least one hold; reported: the lane
+   dispatches and TTFT of each long prompt and the lane's span between
+   CUDA events; K2 and K1 checked and timed on one captured decode call
+   of the sp run (a long prompt's context); the streamed wide-prefill
+   tail (`ops/sp_prefill.py`) on one captured wide lane call's inputs
+   must equal itself over every tile bitwise and the dense tail the
+   engine runs within the bf16 rule, both timed;
+4d. moves KV blocks and live requests between engines over the serving
+   model (`models/serve_xfer.py`): two prompt blocks shipped by hash give
+   a 2-block prefix hit and the exporter's tokens; the 8 serving requests
+   exported after the first decode chunk (migrations and resubmits)
+   finish on a second engine with the serving phase's tokens and leave
+   the first empty; the same at temperature 0.8 with fixed seeds equals
+   an uninterrupted run; a `loop_steps` 4 target whose fold was captured
+   before the import serves them with folds; an int8-KV pair migrates
+   exactly; an int8 engine refuses a bf16 payload (`kv_dtype`); payload
+   MB and export / import seconds reported; K2 and K1 checked and timed
+   on one captured decode call of the target after the import;
 5. generates 128 tokens for 8 prompts through `make_generate_fn` at
    TinyLlama-1.1B width (dense cache, chunks of 16 steps): 22 K7
    launches per decode step, two runs give the same tokens, tokens/s,
@@ -167,7 +189,9 @@ in a child process of its own (`--window NAME`: the
 script starts itself once per window and fails if a child fails); the
 profiler there must see every launch of the window's sentinel kernels
 that their wrappers counted, else the window fails. Its device-busy
-share and top kernels join the phase's report.
+share and top kernels join the phase's report. The loop, spec, int8
+serving and generate windows run at 8 layers (`WINDOW_LAYERS`), the
+others (LM serving among them) at their phase's depth.
 
 Any failed phase raises and the script exits non-zero; without a GPU it
 exits non-zero before printing any result. Long outputs also go to
@@ -1019,7 +1043,10 @@ LOOP_STEPS = 4
 LOOP_NEW = 256
 SPEC_K = 4
 SPEC_NEW = 32
-LOOP_WINDOW_LAYERS = 8
+# The depth of the loop, spec, int8 serving and generate windows (a
+# child's start-up and the trace it reads grow with the layers; the
+# script's time budget). The LM serving window runs all 22.
+WINDOW_LAYERS = 8
 
 
 def _serve_legged(engine, prompts, new: int, da, ids=None) -> dict:
@@ -1668,8 +1695,9 @@ def _check_window(rows, launches: dict, sentinels: dict) -> dict:
 
 def window_lm_serving(seed: int, quant: str | None = None) -> dict:
     """4 of the serving prompts x 32 new tokens through a warmed paged
-    engine at TinyLlama width (bf16, or int8 KV + weights); sentinels K1
-    and K2 (their int8 arms for int8)."""
+    engine at TinyLlama-1.1B widths (bf16, all 22 layers; or int8 KV +
+    weights at WINDOW_LAYERS layers); sentinels K1 and K2 (their int8
+    arms for int8)."""
     import dataclasses
 
     from walkai_nos_tpu_torch.models.lm import DecoderLM, LMConfig
@@ -1678,7 +1706,8 @@ def window_lm_serving(seed: int, quant: str | None = None) -> dict:
 
     cfg = _tinyllama_cfg(LMConfig)
     if quant:
-        cfg = dataclasses.replace(cfg, kv_dtype=quant, w_dtype=quant)
+        cfg = dataclasses.replace(cfg, kv_dtype=quant, w_dtype=quant,
+                                  num_layers=WINDOW_LAYERS)
     engine = ContinuousBatcher(cfg, DecoderLM(cfg, device="cuda", seed=seed),
                                **LM_ENGINE_KW)
     engine.warm()
@@ -1708,8 +1737,7 @@ def _in_ranges(events, ranges) -> list:
 def window_loop_serving(seed: int) -> dict:
     """4 of the serving prompts x LOOP_NEW new tokens through a warmed
     paged engine with `loop_steps` 4 at TinyLlama-1.1B widths and
-    LOOP_WINDOW_LAYERS layers (host and device activity of 22 layers took
-    the window ~100 s to trace and read), CPU and CUDA activity, each
+    WINDOW_LAYERS layers, CPU and CUDA activity, each
     `_step_loop` under a profiler range "fold". The profiler must see as
     many K1 and K2 launches as the wrappers counted (at capture) and the
     folds added at each replay; and inside each fold's range exactly one
@@ -1726,7 +1754,7 @@ def window_loop_serving(seed: int) -> dict:
     from walkai_nos_tpu_torch.ops import decode_attention as da
     import dataclasses
 
-    cfg = dataclasses.replace(_tinyllama_cfg(LMConfig), num_layers=LOOP_WINDOW_LAYERS)
+    cfg = dataclasses.replace(_tinyllama_cfg(LMConfig), num_layers=WINDOW_LAYERS)
     engine = ContinuousBatcher(cfg, DecoderLM(cfg, device="cuda", seed=seed),
                                loop_steps=LOOP_STEPS, **LM_ENGINE_KW)
     engine.warm()
@@ -1815,12 +1843,14 @@ def window_spec_serving(seed: int) -> dict:
     kernel as K1 and K2 calls at steps k+1 counted and as verify rounds x
     layers: at this shape only a multi-step K1 call launches it (a
     one-step call's last CTA of each cell combines), so the device shows
-    the verify's K1 calls apart from the draft's."""
+    the verify's K1 calls apart from the draft's. WINDOW_LAYERS layers."""
+    import dataclasses
+
     from walkai_nos_tpu_torch.models.lm import DecoderLM, LMConfig
     from walkai_nos_tpu_torch.models.serve import ContinuousBatcher
     from walkai_nos_tpu_torch.ops import decode_attention as da
 
-    cfg = _tinyllama_cfg(LMConfig)
+    cfg = dataclasses.replace(_tinyllama_cfg(LMConfig), num_layers=WINDOW_LAYERS)
     model = DecoderLM(cfg, device="cuda", seed=seed)
     engine = ContinuousBatcher(cfg, model, loop_steps=LOOP_STEPS, spec=True,
                                spec_k=SPEC_K, spec_min_accept=0.0, draft_cfg=cfg,
@@ -1861,12 +1891,15 @@ def window_spec_serving(seed: int) -> dict:
 
 def window_generate(seed: int) -> dict:
     """One `make_generate_fn` run of the generate phase (8 prompts, 128
-    new tokens, chunks of 16) after a warm-up; sentinel K7."""
+    new tokens, chunks of 16) at WINDOW_LAYERS layers after a warm-up;
+    sentinel K7."""
+    import dataclasses
+
     from walkai_nos_tpu_torch.models.decode import make_generate_fn
     from walkai_nos_tpu_torch.models.lm import DecoderLM, LMConfig
     from walkai_nos_tpu_torch.ops import decode_attention as da
 
-    cfg = _tinyllama_cfg(LMConfig)
+    cfg = dataclasses.replace(_tinyllama_cfg(LMConfig), num_layers=WINDOW_LAYERS)
     model = DecoderLM(cfg, device="cuda", seed=seed)
     prompts = _generate_prompts(cfg, seed)
     gen = make_generate_fn(cfg, tokens_per_dispatch=GENERATE_CHUNK)
@@ -2046,6 +2079,288 @@ def _profile_summary(prof, wall: float, table_name: str, launches: dict,
         ],
         "sentinel_launches": _check_window(rows, launches, sentinels),
     }
+
+
+# The sequence-parallel prefill leg and the block-transfer leg (TinyLlama
+# width, the LM serving phase's model, 8 slots, cache_len 2048).
+SP_KW = dict(LM_ENGINE_KW, sp_min_tokens=1024, sp_span=4)
+SP_LONG = (1536, 1901)  # 1901 is no block multiple
+SP_NEW = 32
+
+
+def _sp_prompts(cfg, prompts, seed: int) -> list:
+    """The sp leg's requests: two long prompts, then the six shortest
+    LM serving prompts."""
+    rng = np.random.default_rng(seed + 14)
+    longs = [rng.integers(0, cfg.vocab_size, n) for n in SP_LONG]
+    return longs + sorted(prompts, key=len)[:6]
+
+
+@contextlib.contextmanager
+def _lane_log(engine, serve_mod, sink: dict):
+    """Records, per prefill-lane dispatch of `engine`, the request ids
+    on the lane (`sink["rids"]`) and CUDA events around the lane forward
+    (`sink["events"]`): their span is the lane's device time plus any
+    gap the device waited on the host's launches in it."""
+    prepare, run_lane = engine._prepare_lane, serve_mod.run_lane
+    sink.setdefault("rids", [])
+    sink.setdefault("events", [])
+
+    def logged():
+        sink["rids"].append([p.req.rid for p in engine._prefilling])
+        return prepare()
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run_lane(*args)
+        end.record()
+        sink["events"].append((start, end))
+        return out
+
+    engine._prepare_lane, serve_mod.run_lane = logged, timed
+    try:
+        yield
+    finally:
+        engine._prepare_lane, serve_mod.run_lane = prepare, run_lane
+
+
+def _lane_ms(sink: dict) -> list:
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in sink["events"]]
+
+
+def _tail_check(lm_mod, sp_mod, cap: dict) -> dict:
+    """The streamed tail on one captured wide lane call's inputs (the
+    dense tail's, `_captured`): bitwise equal whatever tiles past the
+    rows' largest query position it visits, held to the dense tail the
+    engine ran with the bf16 rule, both timed (device ms)."""
+    q, k_all, v_all, idx = cap["args"]
+    steps, cache_len = q.shape[2], k_all.shape[2]
+    horizon = min(int(idx.max()) + steps - 1, cache_len - 1)
+    got = sp_mod.streamed_cache_attention(q, k_all, v_all, idx, horizon=horizon)
+    every = sp_mod.streamed_cache_attention(q, k_all, v_all, idx)
+    if not torch.equal(got, every):
+        _fail("streamed tail: the host horizon changed the output")
+    dense = lm_mod._masked_cache_attention(q, k_all, v_all, idx)
+    err, ratio = _err([got], [dense], torch.bfloat16)
+    if not ratio <= 1.0:
+        _fail(f"streamed tail: {err} from the dense tail, {ratio:.3g}x its tolerance")
+    return {
+        "shape": f"q {list(q.shape)} k {list(k_all.shape)} horizon {horizon}",
+        "tiles_visited": horizon // 128 + 1, "tiles": cache_len // 128,
+        "max_abs_err_vs_dense": err, "err_over_tol": ratio,
+        "tol": "%g * max|dense| per row + %g" % TOL[torch.bfloat16],
+        "bitwise_equal_all_tiles": True,
+        "streamed_ms": _timed(lambda i: sp_mod.streamed_cache_attention(
+            q, k_all, v_all, idx, horizon=horizon), 5),
+        "streamed_all_tiles_ms": _timed(lambda i: sp_mod.streamed_cache_attention(
+            q, k_all, v_all, idx), 5),
+        "dense_ms": _timed(lambda i: lm_mod._masked_cache_attention(
+            q, k_all, v_all, idx), 5),
+    }
+
+
+# The sp-on run's captures: lane dispatch 16 (the 1901-token prompt's
+# windows 20-23 on all four rows) and decode step 160 (that prompt
+# decoding at a context past 1901), each at layer 0.
+SP_TAIL_AT, SP_DECODE_AT = 16, 160
+
+
+def sp_serving_phase(ContinuousBatcher, lm_mod, serve_mod, sp_mod, da, model,
+                     cfg, prompts, seed: int) -> dict:
+    """The sequence-parallel prefill lane at TinyLlama width: two long
+    prompts (1536 and 1901 tokens) and the six shortest serving prompts,
+    32 new tokens each, with `sp_prefill` on and off (`sp_min_tokens`
+    1024, `sp_span` 4). Greedy tokens must be equal; `sp_stats()` must
+    count 2 long requests, more than 2 fanned rows and a hold. Reports
+    the lane dispatches and TTFT of each long prompt. The sp-on run keeps
+    one decode call's and one wide lane call's inputs (one device copy
+    each): K2 and K1 checked and timed on the first, the streamed tail
+    against the dense one on the second."""
+    picks = _sp_prompts(cfg, prompts, seed)
+    L = cfg.num_layers
+    runs, lanes, dec, wide = {}, {}, {}, {}
+    for on in (False, True):
+        engine = ContinuousBatcher(cfg, model, sp_prefill=on, **SP_KW)
+        engine.warm()
+        log = {}
+        caps = ((_captured(lm_mod, "fused_qkv_paged_attention", SP_DECODE_AT * L, dec),
+                 _captured(lm_mod, "_masked_cache_attention", SP_TAIL_AT * L, wide,
+                           steps=SP_KW["prefill_chunk"]))
+                if on else (contextlib.nullcontext(), contextlib.nullcontext()))
+        with _lane_log(engine, serve_mod, log), caps[0], caps[1]:
+            runs[on] = run = _serve_timed(engine, picks, SP_NEW, da)
+        lane_ms = _lane_ms(log)
+        for name in ("paged_attention", "qkv_rope"):
+            if run["launches"][name] <= 0:
+                _fail(f"sp serving (sp {on}): {name} was not launched")
+        lanes[on] = {
+            "lane_dispatches": len(log["rids"]),
+            "lane_span_ms": sum(lane_ms),
+            "long": [{
+                "tokens": len(picks[i]),
+                "lane_dispatches": sum(run["rids"][i] in r for r in log["rids"]),
+                "ttft_s": run["records"][run["rids"][i]]["ttft_s"],
+            } for i in range(len(SP_LONG))],
+            "sp_stats": engine.sp_stats(),
+        }
+        del engine
+    tokens = {on: [r["records"][rid]["tokens"] for rid in r["rids"]]
+              for on, r in runs.items()}
+    if tokens[True] != tokens[False]:
+        _fail("sp serving: sp on gave other tokens than sp off")
+    st = lanes[True]["sp_stats"]
+    if st["requests_total"] != 2 or st["rows_total"] <= 2 or st["holds_total"] < 1:
+        _fail(f"sp serving: sp_stats {st}")
+    out = {"requests": len(picks), "new_tokens_each": SP_NEW,
+           "engine": {k: v for k, v in SP_KW.items()},
+           "tokens_equal_sp_off": True, "tail": _tail_check(lm_mod, sp_mod, wide),
+           "kernels": _path_paged_kernels(
+               da, dec, f"sp serving, decode step {SP_DECODE_AT}, layer 0")}
+    for on, run in runs.items():
+        out["sp_on" if on else "sp_off"] = {**_public(run), **lanes[on]}
+    return out
+
+
+def _xfer_serve(engine, prompts, new: int, **knobs) -> list:
+    rids = [engine.submit(p, max_new_tokens=new, trace_id=str(i), **_knobs(knobs, i))
+            for i, p in enumerate(prompts)]
+    out = engine.run()
+    return [out[r] for r in rids]
+
+
+def _knobs(knobs: dict, i: int) -> dict:
+    return dict(knobs, seed=1000 + i) if knobs else {}
+
+
+def _migrate(src, dst, prompts, new: int, cap=None, **knobs) -> dict:
+    """Serves `prompts` on `src` until its first decode chunk has
+    committed, ships everything (`export_resident`) to `dst`, finishes
+    there; returns the tokens in prompt order and the transfer's
+    figures. `src` must end empty. `cap` (lm module, sink): keep the
+    inputs of `dst`'s layer-0 K2 + K1 call of its fourth decode step."""
+    rids = [src.submit(p, max_new_tokens=new, trace_id=str(i), **_knobs(knobs, i))
+            for i, p in enumerate(prompts)]
+    while not any(len(src._requests[r].tokens) > 1 for r in rids):
+        src.step()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    payload = src.export_resident()
+    export_s = time.monotonic() - t0
+    wire = json.dumps(payload)
+    t0 = time.monotonic()
+    landed = dst.import_resident(json.loads(wire))
+    torch.cuda.synchronize()
+    import_s = time.monotonic() - t0
+    empty = {"draining": False, "resident_slots": 0, "prefilling": 0,
+             "queued": 0, "blocks_remaining": 0}
+    if src.has_work or src.drain_stats() != empty:
+        _fail(f"transfer: the source kept work: {src.drain_stats()}")
+    by_trace = {o["trace_id"]: o["rid"] for o in landed}
+    with (_captured(cap[0], "fused_qkv_paged_attention", 3 * dst.cfg.num_layers,
+                    cap[1]) if cap else contextlib.nullcontext()):
+        out = dst.run()
+    return {
+        "tokens": [out[by_trace[str(i)]] for i in range(len(prompts))],
+        "migrated": len(payload["migrate"]), "resubmitted": len(payload["resubmit"]),
+        "payload_mb": len(wire) / 1e6,
+        "tile_mb": sum(len(t["data"]) for t in payload["tiles"]) * 3 / 4 / 1e6,
+        "export_s": export_s, "import_s": import_s,
+    }
+
+
+def transfer_phase(ContinuousBatcher, DecoderLM, lm_mod, da, model, cfg, prompts,
+                   serve_tokens, seed: int) -> dict:
+    """KV block transfer and live migration at TinyLlama width, engines A
+    and B over one model (8 slots, cache_len 2048): (a) A's two full
+    blocks of a prompt shipped by hash make B serve it with a 2-block
+    prefix hit and A's tokens; (b) the 8 serving requests shipped from A
+    after its first decode chunk finish on B with the LM serving leg's
+    tokens, A empty; (c) the first four sampled at temperature 0.8 with
+    fixed seeds, exact against an uninterrupted run; (d) the 8 into a
+    `loop_steps` 4 engine whose fold was captured before the import; (e)
+    an int8-KV pair (the first four), exact against the uninterrupted
+    int8 engine; (f) a bf16 payload
+    rejected whole by an int8 engine (`kv_dtype`). K2 and K1 are checked
+    and timed on one decode call B made after the import in (b)."""
+    import dataclasses
+
+    from walkai_nos_tpu_torch.models.block_key import chain_hashes
+
+    out = {}
+    a = ContinuousBatcher(cfg, model, **LM_ENGINE_KW)
+    b = ContinuousBatcher(cfg, model, **LM_ENGINE_KW)
+    p = prompts[0]  # 300 tokens: two full shareable blocks
+    want = _xfer_serve(a, [p], SP_NEW)
+    blocks = a.export_blocks(chain_hashes(p))
+    got = b.import_blocks(json.loads(json.dumps(blocks)))
+    if got != {"imported": 2, "rejected": {}}:
+        _fail(f"transfer (a): import_blocks gave {got}")
+    hits0 = b.prefix_stats()["block_hits"]
+    if _xfer_serve(b, [p], SP_NEW) != want or b.prefix_stats()["block_hits"] - hits0 != 2:
+        _fail("transfer (a): the imported prefix did not serve A's tokens with 2 hits")
+    out["a_blocks"] = {"imported": 2, "prefix_hits": 2, "tokens_equal": True,
+                       "tile_mb": sum(len(t["data"]) for t in blocks["tiles"]) * 3 / 4 / 1e6}
+    da.reset_launch_counts()
+    dec = {}
+    moved = _migrate(a, b, prompts, SP_NEW, cap=(lm_mod, dec))
+    torch.cuda.synchronize()
+    launches = dict(da.LAUNCHES)
+    if moved.pop("tokens") != serve_tokens:
+        _fail("transfer (b): migrated streams gave other tokens than LM serving")
+    if not moved["migrated"] or not moved["resubmitted"]:
+        _fail(f"transfer (b): want migrations and resubmits: {moved}")
+    for name in ("paged_attention", "qkv_rope"):
+        if launches[name] <= 0:
+            _fail(f"transfer (b): {name} was not launched")
+    out["b_greedy"] = {**moved, "tokens_equal": True, "launches": launches}
+    out["kernels"] = _path_paged_kernels(
+        da, dec, "transfer (b), the target's decode step 3 after the import, layer 0")
+    sampled, four = dict(temperature=0.8), prompts[:4]
+    ref = _xfer_serve(ContinuousBatcher(cfg, model, **LM_ENGINE_KW), four,
+                      SP_NEW, **sampled)
+    moved = _migrate(a, b, four, SP_NEW, **sampled)
+    if moved.pop("tokens") != ref:
+        _fail("transfer (c): a migrated sampled stream left its draws")
+    out["c_sampled"] = {**moved, "tokens_equal": True}
+    b4 = ContinuousBatcher(cfg, model, loop_steps=4, **LM_ENGINE_KW)
+    b4.warm()
+    if not b4._loop.captures:
+        _fail("transfer (d): warm() captured no fold")
+    folds0 = b4.loop_stats()["dispatches"]
+    moved = _migrate(a, b4, prompts, SP_NEW)
+    if moved.pop("tokens") != serve_tokens:
+        _fail("transfer (d): the folds served the imported slots other tokens")
+    folds = b4.loop_stats()["dispatches"] - folds0
+    if folds <= 0:
+        _fail("transfer (d): no fold ran after the import")
+    out["d_loop4"] = {**moved, "folds": folds, "tokens_equal": True}
+    del a, b, b4
+    cfg8 = dataclasses.replace(cfg, kv_dtype="int8")
+    model8 = DecoderLM(cfg8, device="cuda", seed=seed)
+    a8 = ContinuousBatcher(cfg8, model8, **LM_ENGINE_KW)
+    b8 = ContinuousBatcher(cfg8, model8, **LM_ENGINE_KW)
+    ref = _xfer_serve(ContinuousBatcher(cfg8, model8, **LM_ENGINE_KW), four, SP_NEW)
+    moved = _migrate(a8, b8, four, SP_NEW)
+    if moved.pop("tokens") != ref:
+        _fail("transfer (e): int8-KV migration gave other tokens")
+    out["e_int8"] = {**moved, "tokens_equal": True}
+    got = b8.import_blocks(blocks)
+    if got != {"imported": 0, "rejected": {"kv_dtype": 2}}:
+        _fail(f"transfer (f): a bf16 payload into int8 gave {got}")
+    try:
+        b8.import_resident({**blocks, "kind": "resident", "resubmit": [],
+                            "migrate": [{"n_blocks": 1}]})
+        _fail("transfer (f): an int8 engine took a bf16 resident payload")
+    except RuntimeError as e:
+        if "kv_dtype" not in str(e):
+            raise
+    out["f_rejected"] = {"import_blocks": got, "import_resident": "kv_dtype"}
+    del a8, b8, model8
+    torch.cuda.empty_cache()
+    return out
 
 
 def unfused_phase(ContinuousBatcher, DecoderLM, da, cfg, seed: int) -> dict:
@@ -4141,8 +4456,10 @@ def main() -> int:
     from walkai_nos_tpu_torch.models import trainer as trainer_mod
     from walkai_nos_tpu_torch.models import vit as vit_mod
     from walkai_nos_tpu_torch.models import vit_serving
+    from walkai_nos_tpu_torch.models import serve as serve_mod
     from walkai_nos_tpu_torch.models.serve import ContinuousBatcher
     from walkai_nos_tpu_torch.ops import _build
+    from walkai_nos_tpu_torch.ops import sp_prefill as sp_mod
     from walkai_nos_tpu_torch.ops import attention as fa
     from walkai_nos_tpu_torch.ops import decode_attention as da
 
@@ -4204,6 +4521,27 @@ def main() -> int:
     serve["profile"] = run_window("lm_serving", args.seed)
     print(json.dumps({"serving": serve}), flush=True)
     phase_end_s['lm_serving'] = time.monotonic() - start
+    sp_serve = sp_serving_phase(ContinuousBatcher, lm_mod, serve_mod, sp_mod, da,
+                                model, cfg, serve_prompts, args.seed)
+    print(json.dumps({"sp_serving": sp_serve}), flush=True)
+    tail = sp_serve["tail"]
+    print(f"SP serving on {smi}: long prompts {SP_LONG} lane dispatches "
+          f"{[x['lane_dispatches'] for x in sp_serve['sp_on']['long']]} sp on, "
+          f"{[x['lane_dispatches'] for x in sp_serve['sp_off']['long']]} off; TTFT "
+          f"{[round(x['ttft_s'], 3) for x in sp_serve['sp_on']['long']]} s on, "
+          f"{[round(x['ttft_s'], 3) for x in sp_serve['sp_off']['long']]} off; "
+          f"sp_stats {json.dumps(sp_serve['sp_on']['sp_stats'])}; wide tail "
+          f"streamed {tail['streamed_ms']:.4f} ms, dense {tail['dense_ms']:.4f} ms",
+          flush=True)
+    phase_end_s['sp_serving'] = time.monotonic() - start
+    xfer = transfer_phase(ContinuousBatcher, DecoderLM, lm_mod, da, model, cfg,
+                          serve_prompts, serve_tokens, args.seed)
+    print(json.dumps({"transfer": xfer}), flush=True)
+    print(f"Transfer on {smi}: " + "; ".join(
+        f"{k} {v['payload_mb']:.2f} MB, export {v['export_s']:.3f} s, import "
+        f"{v['import_s']:.3f} s, {v['migrated']} migrated, {v['resubmitted']} resubmitted"
+        for k, v in xfer.items() if "payload_mb" in v), flush=True)
+    phase_end_s['transfer'] = time.monotonic() - start
     loop_serve = loop_serving_phase(ContinuousBatcher, da, model, cfg, serve_prompts)
     loop_serve["profile"] = window = run_window("loop_serving", args.seed)
     print(json.dumps({"loop_serving": loop_serve}), flush=True)
@@ -4473,6 +4811,23 @@ def main() -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             })
+    # The sp leg and the transfer leg run K2 + K1 at steps 1: launches
+    # counted by the sp-on run and by the transfer leg's greedy migration
+    # (source and target), each kernel checked and timed on one of the
+    # leg's own calls.
+    for leg, launched, measured in (
+            ("sp", sp_serve["sp_on"]["launches"], sp_serve["kernels"]),
+            ("xfer", xfer["b_greedy"]["launches"], xfer["kernels"])):
+        for name in ("paged_attention", "qkv_rope"):
+            source, replaces = decode_sites[name]
+            t = measured[name]
+            kernels.append({
+                "name": f"{name}_{leg}", "route": "cuda", "source": f"{src}{source}",
+                "replaces": replaces, "launches": launched[name],
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            })
     # The LoRA leg runs K1 without injection, at steps 1 (armed decode) and
     # k+1 (armed verify), each checked and timed on one of its calls.
     for name, t in lora["kernels"].items():
@@ -4493,6 +4848,7 @@ def main() -> int:
             "timing": rows + grows + vrows,
             "hf_llama": hf_llama, "hf_gpt2": hf_gpt2, "moe_serving": moe,
             "serving": serve, "loop_serving": loop_serve, "spec_serving": spec_serve,
+            "sp_serving": sp_serve, "transfer": xfer,
             "generate": generate, "speculative": speculative,
             "dense_serving": dense_serve, "exactness_f32": exact,
             "spec_exactness_f32": spec_exact,

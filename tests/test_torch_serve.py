@@ -189,10 +189,10 @@ def test_pool_overflow_rejected(served):
     [
         # The dense engine is ported; its later-slice features are not.
         dict(paged=False, capture="/nonexistent"),
-        dict(sp_prefill=True), dict(capture="/nonexistent"),
+        dict(capture="/nonexistent"),
         dict(obs=object()),
         # Options of those features: set, they raise rather than sit inert.
-        dict(prompt_bucket=32), dict(sp_min_tokens=96),
+        dict(prompt_bucket=32),
         dict(slo_window_s=5.0),
     ],
 )

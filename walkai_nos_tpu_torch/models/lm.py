@@ -633,6 +633,9 @@ class CausalAttention(nn.Module):
             return paged_decode_attention(
                 q, k_pool, v_pool, table, index, k_scales=ks, v_scales=vs
             )
+        # Wide prefill chunks: every row's K/V is written above, before
+        # this gather, so a window reads the window before it in the same
+        # dispatch (the sp lane's fan-out relies on it).
         if c.kv_quant:
             k_all = dequantize_gathered(k_pool, ks, table, q.dtype)
             v_all = dequantize_gathered(v_pool, vs, table, q.dtype)

@@ -60,6 +60,24 @@ leave at EOS or their budget, without stopping the batch.
   folds read; they also drop the adapter's cached prefix blocks, whose
   rows the old weights wrote (the JAX engine keeps those). `lora_stats()`
   reports the set.
+- **Sequence-parallel prefill lane** (`sp_prefill=True`, paged only):
+  a prompt of `sp_min_tokens` or more is a long entry; at most one
+  prefills at a time (a held long head is jumped by the first short
+  behind it, a long never jumps anything), and each dispatch fans its
+  next chunk windows over up to `sp_span` lane rows the other entries
+  leave spare, so one dispatch advances it `span x prefill_chunk`
+  tokens. Every row's K/V lands before any row's attention reads, so
+  window j+1 sees window j of the same dispatch. `sp_stats()` reports
+  it.
+- **Block transfer and live migration** (`models/serve_xfer.py`):
+  `export_blocks` / `import_blocks` ship ready prefix blocks by content
+  hash, `export_resident` / `import_resident` move accepted requests
+  between engines mid-stream, in the JAX engine's JSON-safe payload
+  (the two packages import each other's). With the drain surface a
+  router polls (`queue_depth`, `draining`, `drain_stats`,
+  `drain_new_tokens`, `drain_latencies`, `decode_ready_rids`,
+  `admission_stall_s`, `seconds_since_last_dispatch`), a replica can be
+  drained without dropping work.
 
 What differs from the JAX engine, and why:
 
@@ -80,12 +98,19 @@ What differs from the JAX engine, and why:
   in both engines, as in JAX's.
 - Sampled streams are counter-based (`models/decode.py`), not JAX's
   threefry bits; greedy streams match the JAX engine token for token.
+- The sp lane keeps the lane's fixed shape: fanned rows take lane rows
+  that would otherwise run idle, over the full table width (JAX sizes
+  the lane to the rows in use and truncates the table). Its wide
+  chunks keep the dense attention tail on both devices, where JAX
+  streams over cache tiles on its accelerator: on the H100 the streamed
+  tail (`ops/sp_prefill.py`, plain PyTorch) was the slower (PERF.md).
 - The engine's features of later slices raise NotImplementedError at
-  construction: `sp_prefill`, `capture`, and the `obs` telemetry
-  planes, as does any of their options (`sp_*`, `slo_*`) set to other
-  than its JAX default, and `prompt_bucket` in paged mode,
-  where it does nothing (the engine keeps only the counters its stats
-  views read, `models/serve_stats.py`).
+  construction: `capture` and the `obs` telemetry planes, as does any
+  of their options (`slo_*`) set to other than its JAX default, and
+  `prompt_bucket` in paged mode, where it does nothing (the engine
+  keeps only the counters its stats views read,
+  `models/serve_stats.py`). `saturation`, `slo_ok`, `debug_state` and
+  `tp_stats` are not ported yet.
 """
 
 from __future__ import annotations
@@ -121,6 +146,7 @@ from walkai_nos_tpu_torch.models.serve_lane import (
     to_device,
 )
 from walkai_nos_tpu_torch.models.serve_stats import EngineStats
+from walkai_nos_tpu_torch.models.serve_xfer import BlockTransfer
 from walkai_nos_tpu_torch.ops.decode_attention import MAX_KERNEL_STEPS, PAGE_ROWS
 
 __all__ = ["ContinuousBatcher"]
@@ -130,7 +156,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
 
 
-class ContinuousBatcher:
+class ContinuousBatcher(BlockTransfer):
     """Continuous-batching engine over a slot pool.
 
         engine = ContinuousBatcher(cfg, params, slots=8, cache_len=256)
@@ -178,7 +204,6 @@ class ContinuousBatcher:
         device=None,
     ) -> None:
         for on, what, item in (
-            (sp_prefill, "sp_prefill=True", "sp_prefill"),
             (capture is not None, "capture", "capture"),
             (not isinstance(obs, bool) or slo_objectives is not None
              or slo_window_s != 30.0, "the obs telemetry planes", "obs"),
@@ -187,8 +212,6 @@ class ContinuousBatcher:
             (paged and prompt_bucket != 16,
              "prompt_bucket in paged mode (a dense-engine option)",
              "engine features"),
-            ((sp_min_tokens, sp_span) != (2048, 0), "the sp_prefill options",
-             "sp_prefill"),
         ):
             if on:
                 raise _not_ported(what, item)
@@ -229,6 +252,15 @@ class ContinuousBatcher:
                 )
             self.prefill_chunk = max(1, min(prefill_chunk, cache_len))
             self.prefill_lanes = max(1, prefill_lanes)
+            # JAX `walkai_nos_tpu/models/serve.py:459-465`.
+            if sp_min_tokens < 1:
+                raise ValueError(
+                    f"sp_min_tokens must be >= 1; got {sp_min_tokens}"
+                )
+            if sp_span < 0:
+                raise ValueError(
+                    f"sp_span must be >= 0 (0 = auto); got {sp_span}"
+                )
             self.cfg = dataclasses.replace(
                 cfg, ragged_decode=True, cache_len=cache_len,
                 paged_decode=True, paged_blocks=self.pool_blocks,
@@ -247,6 +279,18 @@ class ContinuousBatcher:
                 cfg, ragged_decode=True, cache_len=cache_len
             )
             self.pool = None
+        # The sequence-parallel prefill lane (JAX :523-531): long prompts
+        # fan their chunk windows over up to `sp_span` lane rows; 0 sizes
+        # the span to max(2, tp), 2 on one card.
+        if sp_prefill and not paged:
+            raise ValueError(
+                "sp_prefill requires the paged engine (the "
+                "sequence-parallel lane is a fan-out of the chunked "
+                "prefill lane; the dense path has no lane)"
+            )
+        self.sp_prefill = bool(sp_prefill)
+        self.sp_min_tokens = int(sp_min_tokens)
+        self.sp_span = int(sp_span) or 2
         # Multi-LoRA (paged only: the per-slot ids are paged slot state).
         if adapters is not None:
             if not paged:
@@ -359,6 +403,8 @@ class ContinuousBatcher:
         self._loop_sync_n = 0
         self._loop_steps_acc = 0
         self._requests: dict[int, _Request] = {}
+        self._latencies: deque[float] = deque(maxlen=4096)
+        self._last_dispatch_mono: float | None = None
         self._draining = False
         self._pending: deque[_Request] = deque()
         self._slot_req: list[_Request | None] = [None] * slots
@@ -600,8 +646,76 @@ class ContinuousBatcher:
             if r.done
         }
         for rid in done:
+            self._latencies.append(done[rid]["wall_s"])
             del self._requests[rid]
         return done
+
+    def drain_new_tokens(self) -> dict[int, list[int]]:
+        """Tokens newly visible since the last call, per request (active
+        and just-finished alike): the streaming feed. Never removes a
+        request."""
+        out = {}
+        for rid, r in self._requests.items():
+            if len(r.tokens) > r.streamed:
+                out[rid] = r.tokens[r.streamed:]
+                r.streamed = len(r.tokens)
+        return out
+
+    def drain_latencies(self) -> list[float]:
+        """Pop the submit -> completion wall seconds of the requests
+        `drain_done_records` has handed out so far."""
+        out = list(self._latencies)
+        self._latencies.clear()
+        return out
+
+    # -- what a router polls -------------------------------------------------
+
+    @property
+    def draining(self) -> bool:
+        """True once `drain()` has been called."""
+        return self._draining
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests submitted but not yet admitted to a slot."""
+        return len(self._pending)
+
+    @property
+    def admission_stall_s(self) -> float:
+        """Cumulative host seconds inside admission work."""
+        return self.obs.stall.value()
+
+    @property
+    def seconds_since_last_dispatch(self) -> float | None:
+        """Host seconds since the engine last dispatched a device
+        program; None before the first."""
+        if self._last_dispatch_mono is None:
+            return None
+        return time.monotonic() - self._last_dispatch_mono
+
+    def drain_stats(self) -> dict:
+        """Drain-down progress: resident slots, prefilling and queued
+        counts, and the blocks live requests still hold; all reach zero
+        as a drain or an `export_resident` empties the engine."""
+        return {
+            "draining": self._draining,
+            "resident_slots": sum(
+                1 for r in self._slot_req if r is not None and not r.done
+            ),
+            "prefilling": len(self._prefilling),
+            "queued": len(self._pending),
+            "blocks_remaining": (
+                self.pool.blocks_allocated() if self.paged else 0
+            ),
+        }
+
+    def decode_ready_rids(self) -> list[int]:
+        """Live requests that have committed at least one token: done
+        with prefill, migratable as whole slots (`export_resident`)."""
+        return [
+            req.rid for req in self._slot_req
+            if req is not None and not req.done and req.tokens
+        ]
 
     # -- stats ---------------------------------------------------------------
 
@@ -769,6 +883,21 @@ class ContinuousBatcher:
             "exits": exits,
         }
 
+    def sp_stats(self) -> dict:
+        """Sequence-parallel prefill view (the JAX engine's `sp_stats()`):
+        the knobs in force, the long entries prefilling now, and the
+        admitted long requests, fanned lane rows and admission turns a
+        long waited."""
+        return {
+            "enabled": self.sp_prefill,
+            "sp_min_tokens": self.sp_min_tokens,
+            "sp_span": self.sp_span,
+            "active": int(self.obs.sp_active.value() or 0),
+            "requests_total": int(self.obs.sp_requests.value()),
+            "rows_total": int(self.obs.sp_rows.value()),
+            "holds_total": int(self.obs.sp_holds.value()),
+        }
+
     def lora_stats(self) -> dict:
         """Multi-LoRA view (the JAX engine's `lora_stats()`, without its
         obs planes): the set's geometry, the resident adapters, and the
@@ -886,15 +1015,29 @@ class ContinuousBatcher:
         prefix trie is walked first and matched blocks are shared;
         only the prompt's own new blocks allocate now, while the worst
         case is reserved virtually. Head-of-line: a request that does
-        not fit waits."""
+        not fit waits, with one exception under `sp_prefill` (JAX
+        :3998-4130): a long prompt admits only while no other long entry
+        prefills, and a long head held so is jumped by the first request
+        behind it that the lane may take. A long never jumps anything."""
         busy = {p.slot for p in self._prefilling}
         prefix = self.pool.prefix
+        held_long = False
         for s in range(self.slots):
             if len(self._prefilling) >= self.prefill_lanes or not self._pending:
                 break
             if self._slot_req[s] is not None or s in busy:
                 continue
-            req = self._pending[0]
+            long_busy = any(p.sp for p in self._prefilling)
+            pick = None
+            for i, cand in enumerate(self._pending):
+                if long_busy and self._is_long(cand):
+                    held_long = True
+                    continue
+                pick = i
+                break
+            if pick is None:
+                break
+            req = self._pending[pick]
             true_len = len(req.prompt)
             total = self.pool.blocks_needed(true_len, req.max_new_tokens)
             # K/V rows are functions of the adapter's deltas: the tag
@@ -905,7 +1048,7 @@ class ContinuousBatcher:
             matched_parked = sum(1 for n in matched if n.refcount == 0)
             if self.pool.available(excluding_parked=matched_parked) < new_need:
                 break
-            self._pending.popleft()
+            del self._pending[pick]
             cached = len(matched) * PAGE_ROWS
             blocks = [n.block for n in matched]
             if prefix is not None:
@@ -922,6 +1065,7 @@ class ContinuousBatcher:
             entry = _Prefill(
                 req, s, blocks, consumed=cached, cached=cached,
                 nodes=list(matched), resv=new_need - new_now,
+                sp=self._is_long(req),
             )
             if prefix is not None:
                 walkable = prefix.matchable_blocks(true_len)
@@ -939,7 +1083,18 @@ class ContinuousBatcher:
             self.pool.reserved += entry.resv
             self._prefilling.append(entry)
             busy.add(s)
+            if entry.sp:
+                self.obs.sp_requests.inc()
+            self.obs.sp_active.set(sum(1 for p in self._prefilling if p.sp))
             self.pool.set_gauges()
+        if held_long:
+            # Once per admission turn in which a long waited for the lane.
+            self.obs.sp_holds.inc()
+
+    def _is_long(self, req: _Request) -> bool:
+        """A long prompt of the sequence-parallel lane: `sp_prefill` on
+        and at least `sp_min_tokens` tokens."""
+        return self.sp_prefill and len(req.prompt) >= self.sp_min_tokens
 
     # -- dispatch --------------------------------------------------------------
 
@@ -994,6 +1149,7 @@ class ContinuousBatcher:
     def _mark_dispatch(self, busy: int, steps: int) -> None:
         """`steps` is the dispatch's per-slot step window: chunk_steps, k+1
         for a round, the steps a fold ran."""
+        self._last_dispatch_mono = time.monotonic()
         self.obs.dispatches.inc()
         self.obs.busy_steps.inc(busy * steps)
         self.obs.total_steps.inc(self.slots * steps)
@@ -1034,6 +1190,16 @@ class ContinuousBatcher:
         its cached prefix), plus the finishing rows. Marks the request's
         own index nodes ready once their writing chunk is dispatched.
 
+        Sequence-parallel fan-out (JAX :3363-3507): every entry gets one
+        row first; then a long (`sp`) entry claims up to `sp_span` - 1
+        of the rows left spare, never more than its remaining windows,
+        row j carrying its j-th next window. Only its last row can carry
+        the finishing operands (first-token sampling, slot flip, adapter
+        id). The final window is end-aligned, so it rewrites up to
+        W - remaining positions the row before it writes in the same
+        dispatch, with equal values (a row's computation does not depend
+        on its row index; the scatter writes in row order).
+
         JAX runs a lane of `rows` rows: those in use, rounded up to a
         power of two, capped at `prefill_lanes`; its pad rows carry
         token 0 at position 0 through the scratch table. The port's
@@ -1045,7 +1211,17 @@ class ContinuousBatcher:
         chunk of a prompt runs under its request's adapter (`adapter`,
         pad rows 0)."""
         W, P = self.prefill_chunk, self.prefill_lanes
-        rows = min(1 << (len(self._prefilling) - 1).bit_length(), P)
+        spans = [1] * len(self._prefilling)
+        spare = P - len(self._prefilling)
+        for i, entry in enumerate(self._prefilling):
+            if not entry.sp or spare <= 0:
+                continue
+            windows = -(-(len(entry.req.prompt) - entry.consumed) // W)
+            extra = min(self.sp_span - 1, spare, windows - 1)
+            if extra > 0:
+                spans[i] += extra
+                spare -= extra
+        rows = min(1 << (sum(spans) - 1).bit_length(), P)
         tok = np.zeros((P, W), np.int64)
         start = np.zeros(P, np.int32)
         start[rows:] = self._nlog * PAGE_ROWS
@@ -1057,28 +1233,33 @@ class ContinuousBatcher:
         seed = np.zeros(P, np.int64)
         adapter = np.zeros(P, np.int64)
         fin_rows, fin_slots, finished = [], [], []
-        for r, entry in enumerate(self._prefilling):
+        r = 0
+        for entry, span in zip(self._prefilling, spans):
             req = entry.req
             n = len(req.prompt)
-            adapter[r] = req.adapter
-            if n - entry.consumed > W:
-                begin = entry.consumed
-                entry.consumed += W
-            else:
-                begin = max(entry.cached, n - W)
-                entry.consumed = n
-                finished.append(entry)
-                fin_rows.append(r)
-                fin_slots.append(entry.slot)
-                true_len[r] = n
-                temp[r] = req.temperature
-                topk[r] = req.top_k
-                topp[r] = req.top_p
-                seed[r] = req.seed
-            seg = req.prompt[begin:begin + W]
-            tok[r, :len(seg)] = seg
-            start[r] = begin
-            tbl[r, :len(entry.blocks)] = entry.blocks
+            if entry.sp and span > 1:
+                self.obs.sp_rows.inc(span)
+            for _ in range(span):
+                adapter[r] = req.adapter
+                if n - entry.consumed > W:
+                    begin = entry.consumed
+                    entry.consumed += W
+                else:
+                    begin = max(entry.cached, n - W)
+                    entry.consumed = n
+                    finished.append(entry)
+                    fin_rows.append(r)
+                    fin_slots.append(entry.slot)
+                    true_len[r] = n
+                    temp[r] = req.temperature
+                    topk[r] = req.top_k
+                    topp[r] = req.top_p
+                    seed[r] = req.seed
+                seg = req.prompt[begin:begin + W]
+                tok[r, :len(seg)] = seg
+                start[r] = begin
+                tbl[r, :len(entry.blocks)] = entry.blocks
+                r += 1
             while (
                 entry.pending
                 and entry.pending[0].depth * PAGE_ROWS <= entry.consumed
@@ -1110,6 +1291,7 @@ class ContinuousBatcher:
                 s, entry.blocks, entry.nodes, entry.resv,
                 len(entry.req.prompt),
             )
+        self.obs.sp_active.set(sum(1 for p in self._prefilling if p.sp))
 
     def _ensure_decode_blocks(self, window: int, *, advance: bool) -> None:
         """Back every live slot's next `window` cache writes, grabbing

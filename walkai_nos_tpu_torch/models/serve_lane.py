@@ -88,6 +88,7 @@ class _Request:
     truncated: bool = False
     trace_id: str | None = None
     adapter: int = 0
+    streamed: int = 0  # tokens handed out by drain_new_tokens
 
 
 @dataclass
@@ -96,7 +97,8 @@ class _Prefill:
     `_Prefill`): `consumed` prompt tokens written through `blocks`; the
     first `cached` tokens are shared prefix-index blocks it must never
     write; `pending` holds its own inserted index nodes awaiting their
-    writing chunk; `resv` is its unallocated worst-case decode blocks."""
+    writing chunk; `resv` is its unallocated worst-case decode blocks;
+    `sp` marks a long prompt of the sequence-parallel lane."""
 
     req: _Request
     slot: int
@@ -106,6 +108,7 @@ class _Prefill:
     nodes: list = field(default_factory=list)
     pending: list = field(default_factory=list)
     resv: int = 0
+    sp: bool = False
 
 
 @dataclass

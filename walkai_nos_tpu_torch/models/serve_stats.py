@@ -1,6 +1,10 @@
 """The serving engine's counters: the series `occupancy()`, `kv_stats()`,
-`prefix_stats()`, `spec_stats()`, `loop_stats()` and `lora_stats()` read, under the JAX
-engine's names.
+`prefix_stats()`, `spec_stats()`, `loop_stats()`, `lora_stats()` and
+`sp_stats()` read, under the JAX engine's names
+(`walkai_nos_tpu/obs/catalog.py`). The one exception is the
+block-transfer series (`xfer_*`): no view of the engine reads them, and
+they are kept, with the JAX engine's names and labels, for the reader
+the obs slice ports (its metrics registry).
 
 The JAX engine keeps these in its `obs/` telemetry planes (registry,
 trace, SLO and attribution layers); those planes are not ported yet, so
@@ -86,3 +90,14 @@ class EngineStats:
         self.lora_gather = Counter()       # armed dispatches (and folds)
         self.lora_load_seconds = Counter()
         self.lora_resident = Gauge()
+        # The sequence-parallel prefill lane (cb_prefill_sp_*).
+        self.sp_requests = Counter()       # long prompts admitted
+        self.sp_rows = Counter()           # lane rows of fanned dispatches
+        self.sp_holds = Counter()          # admission turns a long waited
+        self.sp_active = Gauge()           # long entries prefilling
+        # KV block transfer and live migration (cb_xfer_*).
+        self.xfer_exported = Counter()     # blocks
+        self.xfer_imported = Counter()     # blocks
+        self.xfer_rejected = Counter()     # labels: reason
+        self.xfer_bytes = Counter()        # labels: dir (in | out)
+        self.xfer_migrated = Counter()     # requests; labels: dir
