@@ -83,6 +83,20 @@ the CUDA toolkit (`nvcc`). It:
    exactly; an int8 engine refuses a bf16 payload (`kv_dtype`); payload
    MB and export / import seconds reported; K2 and K1 checked and timed
    on one captured decode call of the target after the import;
+4e. captures the serving prompts (four greedy, four sampled at
+   temperature 0.8 / top_k 40, then prompts 0 and 7 again for prefix
+   hits) through `ContinuousBatcher(capture=...)` (`obs/capture.py`,
+   `loop_steps` 4, a ring that must rotate at least twice and drop
+   nothing, every file behind its header) beside an uncaptured run of the
+   same traffic, and replays the capture (`sim/replay.py`) on fresh
+   engines: as captured, `loop_steps` 1, prefix cache off, original
+   timing and "int8-sim" KV, every digest verified; weights from another
+   seed must diverge on every request and triage `config_dependent` with
+   a bundle that reads back; in f32 at 4 layers a spec capture (self
+   draft) replays spec off and with a random draft; reported: records,
+   bytes, files, the fingerprint's seconds, step time and TTFT captured
+   and not, each replay's wall and K1/K2 launches; K2 and K1 checked and
+   timed on one decode call of a replay;
 5. generates 128 tokens for 8 prompts through `make_generate_fn` at
    TinyLlama-1.1B width (dense cache, chunks of 16 steps): 22 K7
    launches per decode step, two runs give the same tokens, tokens/s,
@@ -122,7 +136,7 @@ the CUDA toolkit (`nvcc`). It:
    decode step through K2 + K1 is held to the plain route with the
    routers pinned and with the random routers;
 6e. (run right after 6) serves the 8 requests x 32 new tokens at
-   TinyLlama-1.1B width under adapters (0, 1, 2, 3, 0, 1, 2, 3) of
+   TinyLlama-1.1B width (8 of its 22 layers) under adapters (0, 1, 2, 3, 0, 1, 2, 3) of
    `AdapterSet.synthetic(k=4,
    rank=8, scale=0.5)` (`lora_serving_phase`): armed forwards take the
    unfused route (K1 without injection, no K2: K1 launched exactly
@@ -130,7 +144,7 @@ the CUDA toolkit (`nvcc`). It:
    `fused_qkv=False` engine's tokens and every other request differ from
    them; one request per adapter alone repeats its tokens; no prefix hit
    across adapters and two within one; each adapter's first-token logits
-   from the armed engine run in f32 (22 layers) within F32_REL of a plain
+   from the armed engine run in f32 within F32_REL of a plain
    f32 forward over its merged weights (W + A B), the bf16 engine's
    reported against it; `loop_steps` 4 gives loop 1's tokens, and a hot load into id 2
    after the fold graphs were captured reaches the folds (a fresh engine
@@ -138,7 +152,8 @@ the CUDA toolkit (`nvcc`). It:
    with the base model as draft give the same tokens at loop 1 and 4 (K1
    at steps 5 = verify rounds x layers, no K2); int8 KV serves every
    budget and "int8-sim" KV the bf16 tokens; tokens/s, step and folded
-   step times beside the LoRA-free engines', `lora_stats()`, and K1
+   step times beside the LoRA-free engines' (fused and unfused),
+   `lora_stats()`, and K1
    checked and timed on one armed decode call's and one verify call's
    inputs;
 7. holds K3 (packed ViT attention), K4 (flash forward + lse), K5 (dq and
@@ -1043,9 +1058,9 @@ LOOP_STEPS = 4
 LOOP_NEW = 256
 SPEC_K = 4
 SPEC_NEW = 32
-# The depth of the loop, spec, int8 serving and generate windows (a
-# child's start-up and the trace it reads grow with the layers; the
-# script's time budget). The LM serving window runs all 22.
+# The depth of the loop, spec, int8 serving and generate windows and of
+# the LoRA leg (a child's start-up and the trace it reads grow with the
+# layers; the script's time budget). The LM serving window runs all 22.
 WINDOW_LAYERS = 8
 
 
@@ -2363,6 +2378,246 @@ def transfer_phase(ContinuousBatcher, DecoderLM, lm_mod, da, model, cfg, prompts
     return out
 
 
+# The capture leg (TinyLlama width, 22 layers, bf16): the serving prompts,
+# four greedy and four sampled, then prompts 0 and 7 again (prefix hits),
+# captured through a small ring and replayed on fresh engines.
+CAPTURE_NEW = 32
+CAPTURE_KW = dict(LM_ENGINE_KW, loop_steps=LOOP_STEPS)
+CAPTURE_RING = dict(max_bytes=8192, max_files=64)  # rotates, prunes nothing
+CAPTURE_SPEC_NEW = 16
+
+
+def _capture_knobs(i: int) -> dict:
+    """Prompts 0-3 greedy; 4-7 sampled at temperature 0.8, top_k 40, 4
+    and 5 with explicit seeds, 6 and 7 with the default (the rid)."""
+    if i < 4:
+        return {}
+    return dict(temperature=0.8, top_k=40, **({"seed": 100 + i} if i < 6 else {}))
+
+
+def _capture_traffic(engine, prompts, new: int, da) -> dict:
+    """The capture leg's traffic through `engine`: the 8 prompts, and once
+    they drained, prompts 0 and 7 again. The launch counts are set to 0
+    just before and read just after. Returns the records in submit
+    order, the wall, the decode steps (slot steps over slots: a fold
+    counts the steps it ran) and the launches."""
+    torch.cuda.synchronize()
+    da.reset_launch_counts()
+    total0 = engine.obs.total_steps.value()
+    t0 = time.monotonic()
+    records, rids = {}, []
+    for wave in (range(len(prompts)), (0, len(prompts) - 1)):
+        rids += [engine.submit(prompts[i], max_new_tokens=new, **_capture_knobs(i))
+                 for i in wave]
+        while engine.has_work:
+            engine.step()
+            records.update(engine.drain_done_records())
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    steps = (engine.obs.total_steps.value() - total0) / engine.slots
+    for r in rids:
+        if len(records[r]["tokens"]) != new:
+            _fail(f"capture leg: request {r} returned {len(records[r]['tokens'])} tokens")
+    ttft = sorted(records[r]["ttft_s"] for r in rids)
+    return {"records": [records[r] for r in rids], "wall_s": wall,
+            "decode_steps": steps, "step_ms": wall / steps * 1e3,
+            "ttft_p50_s": ttft[len(ttft) // 2], "launches": dict(da.LAUNCHES)}
+
+
+def _check_capture_files(log, n: int) -> dict:
+    """Both packages' invariants of a finished ring: nothing dropped,
+    every file behind its header, at least two rotations; `n` requests
+    recorded each way."""
+    stats = log.stats()
+    if any(stats["dropped"].values()):
+        _fail(f"capture leg: records dropped: {stats['dropped']}")
+    if stats["records"] != {"submit": n, "done": n}:
+        _fail(f"capture leg: records {stats['records']}, not {n} each way")
+    files = log.files()
+    if len(files) < 3:
+        _fail(f"capture leg: the ring rotated {len(files) - 1} times, not twice")
+    sizes = {}
+    for path in files:
+        with open(path) as f:
+            lines = f.read().splitlines()
+        if json.loads(lines[0]).get("kind") != "header":
+            _fail(f"capture leg: {path} does not start with its header")
+        for line in lines[1:]:
+            kind = json.loads(line)["kind"]
+            sizes.setdefault(kind, []).append(len(line) + 1)
+    return {"records": stats["records"], "bytes": stats["bytes"],
+            "files": len(files), "dropped": stats["dropped"],
+            "submit_record_bytes": [min(sizes["submit"]), max(sizes["submit"])],
+            "done_record_bytes": [min(sizes["done"]), max(sizes["done"])]}
+
+
+def _replayed(replay_mod, cap, engine, what: str, params, overrides=None,
+              **timing) -> dict:
+    """One replay of `cap` on `engine`: every digest must verify, else the
+    triage verdict and its coordinates are printed and the leg fails."""
+    report = replay_mod.replay_capture(cap, engine=engine, overrides=overrides,
+                                       **timing)
+    if not report.ok or report.n_verified != len(cap.records):
+        verdict = replay_mod.triage_divergence(
+            cap, report, params, overrides=overrides, device="cuda",
+            flight_dir=os.path.join("chiprun_out", "flight"))
+        print(json.dumps({"capture_replay_triage": {"replay": what,
+                                                    "verdict": verdict}}), flush=True)
+        _fail(f"capture leg: replay {what}: {report.summary()}")
+    return {"wall_s": report.replay_wall_s, "verified": report.n_verified,
+            "requests": report.n_requests}
+
+
+def capture_replay_phase(ContinuousBatcher, lm_mod, replay_mod, capture_mod, da,
+                         model, cfg, prompts, seed: int) -> dict:
+    """The capture plane at TinyLlama-1.1B width (`obs/capture.py`,
+    `sim/replay.py`): one uncaptured and one captured run of the leg's
+    traffic on `CAPTURE_KW` engines (loop_steps 4, prefix cache on, the
+    fused route: K2 + K1), the second recorded through a ring that must
+    rotate and drop nothing; then replays on fresh `build_engine` engines,
+    all 10 digests verified each: (a) as captured, (b) loop_steps 1, (c)
+    prefix cache off, (d) original timing at speed 1, (e) "int8-sim" KV
+    (a token-preserving delta by `classify_config_delta`); a negative
+    control against weights from another seed (every request diverges,
+    triage says config_dependent, the bundle reads back); and in f32 at
+    4 layers a capture with spec on (self draft) replayed spec off and
+    spec on with a random draft. K2 and K1 are checked and timed on one
+    decode call of replay (b)."""
+    import dataclasses
+    import tempfile
+
+    out = {"requests": len(prompts) + 2, "new_tokens_each": CAPTURE_NEW,
+           "engine": dict(CAPTURE_KW)}
+    plain = ContinuousBatcher(cfg, model, **CAPTURE_KW)
+    plain.warm()
+    out["uncaptured"] = _public(_capture_traffic(plain, prompts, CAPTURE_NEW, da))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    plain.config_fingerprint()
+    out["fingerprint_s"] = time.monotonic() - t0
+    del plain
+    os.makedirs("chip_smoke_work", exist_ok=True)
+    work = tempfile.mkdtemp(prefix="capture-", dir=os.path.abspath("chip_smoke_work"))
+    try:
+        log = capture_mod.CaptureLog(os.path.join(work, "ring"), **CAPTURE_RING)
+        t0 = time.monotonic()
+        engine = ContinuousBatcher(cfg, model, capture=log, **CAPTURE_KW)
+        out["captured_build_s"] = time.monotonic() - t0
+        engine.warm()
+        if engine.capture_stats()["records"] != {"submit": 0, "done": 0}:
+            _fail("capture leg: warm() wrote capture records")
+        run = _capture_traffic(engine, prompts, CAPTURE_NEW, da)
+        out["captured"] = _public(run)
+        for name in ("paged_attention", "qkv_rope"):
+            if run["launches"][name] <= 0:
+                _fail(f"capture leg: {name} was not launched in the captured run")
+        if engine.prefix_stats()["block_hits"] < 4:
+            _fail(f"capture leg: prefix hits {engine.prefix_stats()}")
+        fp = engine.config_fingerprint()
+        if any(r["fingerprint"] != fp["id"] for r in run["records"]):
+            _fail("capture leg: a completion record lacks the fingerprint id")
+        state = json.loads(json.dumps(engine.debug_state()))
+        if state["capture"]["fingerprint"] != fp["id"] or state["has_work"]:
+            _fail(f"capture leg: debug_state {state['capture']}")
+        out["ring"] = _check_capture_files(log, len(prompts) + 2)
+        out["fingerprint_id"] = fp["id"]
+        del engine
+        cap = replay_mod.load_capture(log.dir)
+        if cap.fingerprint != fp or cap.skipped or len(cap.records) != len(prompts) + 2:
+            _fail(f"capture leg: the ring loads as {len(cap.records)} records, "
+                  f"{cap.skipped} skipped")
+        for rec, got in zip(cap.records, run["records"]):
+            if rec.tokens != got["tokens"]:
+                _fail(f"capture leg: record {rec.rid} holds other tokens than served")
+
+        replays = {}
+        for what, overrides, timing in (
+            ("a_as_captured", None, {}),
+            ("b_loop_steps_1", {"loop_steps": 1}, {}),
+            ("c_prefix_off", {"prefix_cache": False}, {}),
+            ("d_original_timing", None, {"timing": "original", "speed": 1.0}),
+            ("e_int8_sim_kv", {"kv_dtype": "int8-sim"}, {}),
+        ):
+            eng = replay_mod.build_engine(fp, model, overrides=overrides, device="cuda")
+            if what == "e_int8_sim_kv":
+                delta = replay_mod.classify_config_delta(fp, eng.config_fingerprint())
+                if not delta["token_preserving"] or not delta["delta"]:
+                    _fail(f"capture leg: int8-sim classified {delta}")
+                replays["e_delta"] = delta["delta"]
+            torch.cuda.synchronize()
+            da.reset_launch_counts()
+            kcap = {}
+            with (_captured(lm_mod, "fused_qkv_paged_attention", 8 * cfg.num_layers,
+                            kcap) if what == "b_loop_steps_1"
+                  else contextlib.nullcontext()):
+                replays[what] = _replayed(replay_mod, cap, eng, what, model,
+                                          overrides, **timing)
+            torch.cuda.synchronize()
+            replays[what]["launches"] = {k: da.LAUNCHES[k]
+                                         for k in ("paged_attention", "qkv_rope")}
+            if kcap:
+                out["kernels"] = _path_paged_kernels(da, kcap, "capture replay (b)")
+            del eng
+        out["replays"] = replays
+
+        other = lm_mod.DecoderLM(cfg, device="cuda", seed=seed + 99)
+        report = replay_mod.replay_capture(cap, other, device="cuda")
+        flight = os.path.join(work, "flight")
+        verdict = replay_mod.triage_divergence(cap, report, other, device="cuda",
+                                               flight_dir=flight)
+        del other
+        if len(report.divergent) != len(cap.records) or verdict is None:
+            _fail(f"capture leg: other weights diverged {len(report.divergent)} of "
+                  f"{len(cap.records)} requests")
+        if verdict["classification"] != "config_dependent":
+            _fail(f"capture leg: negative control triaged {verdict}")
+        with open(verdict["bundle_path"]) as f:
+            bundle = json.load(f)
+        if (bundle["trigger"] != "replay_divergence"
+                or bundle["capture_fingerprint"]["id"] != fp["id"]
+                or bundle["replay_fingerprint"]["weights_crc32"] == fp["weights_crc32"]
+                or bundle["record"]["rid"] != verdict["rid"]
+                or "debug_state" not in bundle):
+            _fail("capture leg: the negative control's bundle does not read back")
+        out["negative_control"] = {
+            "divergent": len(report.divergent), "wall_s": report.replay_wall_s,
+            "verdict": {k: verdict[k] for k in ("rid", "token_index", "expected_token",
+                                                "got_token", "classification")},
+            "bundle_bytes": os.path.getsize(verdict["bundle_path"]),
+        }
+
+        # Spec: exact arithmetic only (a bf16 verify rounds apart from a
+        # one-step decode at near-ties, in both packages).
+        cfg32 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
+        m32 = lm_mod.DecoderLM(cfg32, device="cuda", seed=seed + 7)
+        log32 = capture_mod.CaptureLog(os.path.join(work, "spec"))
+        eng = ContinuousBatcher(cfg32, m32, capture=log32, spec=True, spec_k=SPEC_K,
+                                spec_min_accept=0.0, draft_cfg=cfg32, draft_params=m32,
+                                **LM_ENGINE_KW)
+        spec_run = _capture_traffic(eng, prompts, CAPTURE_SPEC_NEW, da)
+        stats = eng.spec_stats()
+        if not stats["verify_dispatches"] or stats["drafting_disabled"]:
+            _fail(f"capture leg: the spec capture ran no rounds: {stats}")
+        del eng
+        cap32 = replay_mod.load_capture(log32.dir)
+        spec = {"layers": 4, "dtype": "float32", "spec_stats": stats,
+                "new_tokens_each": CAPTURE_SPEC_NEW, "capture_wall_s": spec_run["wall_s"]}
+        for what, overrides in (("spec_off", {"spec": False}),
+                                ("spec_random_draft", None)):
+            eng = replay_mod.build_engine(cap32.fingerprint, m32, overrides=overrides,
+                                          device="cuda", draft_seed=seed + 5)
+            spec[what] = _replayed(replay_mod, cap32, eng, f"f32 {what}", m32, overrides)
+            if overrides is None:
+                spec[what]["spec_stats"] = eng.spec_stats()
+            del eng
+        out["spec_f32"] = spec
+        del m32
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def unfused_phase(ContinuousBatcher, DecoderLM, da, cfg, seed: int) -> dict:
     import dataclasses
 
@@ -2448,7 +2703,7 @@ def _merged_llama_sd(model, tree: dict, k: int) -> dict:
 
 
 # A plain f32 forward against the armed engine run in f32 (the bf16
-# weights converted exactly): summation order only, through 22 layers.
+# weights converted exactly): summation order only, through the layers.
 # A delta on a wrong projection or under a wrong id moves logits by O(1).
 F32_REL = 1e-3
 
@@ -2479,6 +2734,7 @@ def _lora_reference_check(ContinuousBatcher, lm_mod, model, armed_kw, prompts,
             engine.run()
     del engine, m32
     hcfg = _tinyllama_hf_config()
+    hcfg.num_hidden_layers = model.cfg.num_layers
     out = {"tol": f"f32 engine: {F32_REL:g} * max|ref|; bf16 reported over "
                   f"{HF_REL:g} * max|ref|"}
     for k, rid in enumerate(rids):
@@ -2548,8 +2804,9 @@ def _path_k1(da, cap: dict, what: str) -> dict:
 
 
 def lora_serving_phase(ContinuousBatcher, lm_mod, lora_mod, da, cfg, prompts,
-                       seed: int, fused: dict) -> dict:
-    """Multi-LoRA serving at TinyLlama-1.1B width (22 layers, bf16, 8 slots,
+                       seed: int) -> dict:
+    """Multi-LoRA serving at TinyLlama-1.1B width (`WINDOW_LAYERS` = 8 of
+    its 22 layers since the capture leg joined the script, bf16, 8 slots,
     cache_len 2048): the serving prompts x 32 new tokens under adapters
     LORA_IDS (the two prefix-sharing prompts under ids 0 and 3) on an armed
     engine, beside LoRA-free engines on the same weights (the spec and
@@ -2571,14 +2828,14 @@ def lora_serving_phase(ContinuousBatcher, lm_mod, lora_mod, da, cfg, prompts,
     layers and no K2 there; (10) int8 KV serves every budget and
     "int8-sim" KV gives the bf16 tokens. Reports tokens/s, step and folded
     step times of the armed and LoRA-free engines, the adapter-0 rows'
-    agreement with the default fused engine (`fused`: the LM serving
-    leg's run of these prompts on the same weights, its "tokens" and
-    figures) and `lora_stats()`; checks
+    agreement with the default fused LoRA-free engine on the same weights
+    and `lora_stats()`; checks
     and times K1 on one armed decode call's and one verify call's
     inputs."""
     import dataclasses
 
     torch.cuda.empty_cache()
+    cfg = dataclasses.replace(cfg, num_layers=WINDOW_LAYERS)
     model = lm_mod.DecoderLM(cfg, device="cuda", seed=seed)
     cfg_u = dataclasses.replace(cfg, fused_qkv=False)
     model_u = lm_mod.DecoderLM(cfg_u, device="cuda", seed=seed)
@@ -2592,7 +2849,8 @@ def lora_serving_phase(ContinuousBatcher, lm_mod, lora_mod, da, cfg, prompts,
     def toks(run):
         return [run["records"][r]["tokens"] for r in run["rids"]]
 
-    out = {"model": "TinyLlama-1.1B widths, 22 layers, random bf16 weights",
+    out = {"model": f"TinyLlama-1.1B widths, {cfg.num_layers} layers, random bf16 "
+                    f"weights",
            "adapters": "AdapterSet.synthetic(k=4, rank=8, scale=0.5)",
            "ids": ids, "new_tokens_each": LORA_NEW, "seconds": {}}
     t_lap = [time.monotonic()]
@@ -2639,11 +2897,15 @@ def lora_serving_phase(ContinuousBatcher, lm_mod, lora_mod, da, cfg, prompts,
     del engine
     lap("timed_run")
     # LoRA-free engines on the same weights (checks 2, 4; the report).
-    e = ContinuousBatcher(cfg_u, model_u, **LM_ENGINE_KW)
-    e.warm()
-    free = {"unfused": _serve_timed(e, prompts, LORA_NEW, da)}
-    del e
-    lap("lora_free_engine")
+    free = {}
+    for route, c, m in (("unfused", cfg_u, model_u), ("fused", cfg, model)):
+        e = ContinuousBatcher(c, m, **LM_ENGINE_KW)
+        e.warm()
+        free[route] = _serve_timed(e, prompts, LORA_NEW, da)
+        del e
+    fused = free["fused"]
+    fused["tokens"] = toks(fused)
+    lap("lora_free_engines")
     base = toks(free["unfused"])
     for i, k in enumerate(ids):
         if k == 0 and tokens[i] != base[i]:
@@ -2653,9 +2915,8 @@ def lora_serving_phase(ContinuousBatcher, lm_mod, lora_mod, da, cfg, prompts,
             _fail(f"lora serving: request {i} under adapter {k} gave the base tokens")
     zero = [i for i, k in enumerate(ids) if k == 0]
     same = sum(a == b for i in zero for a, b in zip(tokens[i], fused["tokens"][i]))
-    out["lora_free"] = {"unfused": _public(free["unfused"]),
-                        "fused (the LM serving leg)": {
-                            k: fused[k] for k in ("step_ms", "decode_tokens_per_s")}}
+    out["lora_free"] = {route: _public(run) for route, run in free.items()}
+    out["lora_free"]["fused"].pop("tokens")
     out["adapter0_equal_unfused_lora_free"] = True
     out["adapter0_vs_fused_lora_free"] = {
         "tokens_equal_share": same / (LORA_NEW * len(zero)),
@@ -4458,7 +4719,9 @@ def main() -> int:
     from walkai_nos_tpu_torch.models import vit_serving
     from walkai_nos_tpu_torch.models import serve as serve_mod
     from walkai_nos_tpu_torch.models.serve import ContinuousBatcher
+    from walkai_nos_tpu_torch.obs import capture as capture_mod
     from walkai_nos_tpu_torch.ops import _build
+    from walkai_nos_tpu_torch.sim import replay as replay_mod
     from walkai_nos_tpu_torch.ops import sp_prefill as sp_mod
     from walkai_nos_tpu_torch.ops import attention as fa
     from walkai_nos_tpu_torch.ops import decode_attention as da
@@ -4542,6 +4805,31 @@ def main() -> int:
         f"{v['import_s']:.3f} s, {v['migrated']} migrated, {v['resubmitted']} resubmitted"
         for k, v in xfer.items() if "payload_mb" in v), flush=True)
     phase_end_s['transfer'] = time.monotonic() - start
+    capture = capture_replay_phase(ContinuousBatcher, lm_mod, replay_mod, capture_mod,
+                                   da, model, cfg, serve_prompts, args.seed)
+    print(json.dumps({"capture_replay": capture}), flush=True)
+    ring, runs = capture["ring"], (capture["uncaptured"], capture["captured"])
+    print(f"Capture on {smi}: {ring['records']} records, {ring['bytes']} bytes, "
+          f"{ring['files']} files (submit records {ring['submit_record_bytes']} B, "
+          f"done {ring['done_record_bytes']} B), fingerprint {capture['fingerprint_id']}, "
+          f"config_fingerprint() {capture['fingerprint_s']:.3f} s; step "
+          f"{runs[1]['step_ms']:.2f} ms captured, {runs[0]['step_ms']:.2f} uncaptured; "
+          f"TTFT p50 {runs[1]['ttft_p50_s']:.4f} s captured, "
+          f"{runs[0]['ttft_p50_s']:.4f} uncaptured; K1/K2 launches captured "
+          f"{runs[1]['launches']['paged_attention']}/{runs[1]['launches']['qkv_rope']}",
+          flush=True)
+    for what, rep in capture["replays"].items():
+        if isinstance(rep, dict):
+            print(f"Replay {what} on {smi}: {rep['verified']}/{rep['requests']} "
+                  f"verified in {rep['wall_s']:.3f} s, K1/K2 launches "
+                  f"{rep['launches']['paged_attention']}/{rep['launches']['qkv_rope']}",
+                  flush=True)
+    neg, spec = capture["negative_control"], capture["spec_f32"]
+    print(f"Replay negative control on {smi}: {neg['divergent']} divergent, "
+          f"{json.dumps(neg['verdict'])}; f32 spec capture replayed spec off "
+          f"{spec['spec_off']['verified']} and random draft "
+          f"{spec['spec_random_draft']['verified']} verified", flush=True)
+    phase_end_s['capture_replay'] = time.monotonic() - start
     loop_serve = loop_serving_phase(ContinuousBatcher, da, model, cfg, serve_prompts)
     loop_serve["profile"] = window = run_window("loop_serving", args.seed)
     print(json.dumps({"loop_serving": loop_serve}), flush=True)
@@ -4595,19 +4883,19 @@ def main() -> int:
     print(json.dumps({"unfused": unfused}), flush=True)
     phase_end_s['unfused'] = time.monotonic() - start
     lora = lora_serving_phase(ContinuousBatcher, lm_mod, lora_mod, da, cfg,
-                              serve_prompts, args.seed,
-                              dict(serve, tokens=serve_tokens))
+                              serve_prompts, args.seed)
     print(json.dumps({"lora_serving": lora}), flush=True)
     free = lora["lora_free"]
-    print(f"LoRA serving on {smi}: armed {lora['armed']['decode_tokens_per_s']:.2f} "
-          f"tokens/s, {lora['armed']['step_ms']:.2f} ms a step (LoRA-free: fused "
-          f"{serve['decode_tokens_per_s']:.2f} tokens/s, "
-          f"{serve['step_ms']:.2f} ms, the LM serving leg's; unfused "
+    print(f"LoRA serving on {smi} ({lora['model']}): armed "
+          f"{lora['armed']['decode_tokens_per_s']:.2f} tokens/s, "
+          f"{lora['armed']['step_ms']:.2f} ms a step (LoRA-free: fused "
+          f"{free['fused']['decode_tokens_per_s']:.2f} tokens/s, "
+          f"{free['fused']['step_ms']:.2f} ms; unfused "
           f"{free['unfused']['decode_tokens_per_s']:.2f} tokens/s, "
           f"{free['unfused']['step_ms']:.2f} ms); folded step "
           f"{lora['armed_loop4'].get('fold_ms_per_step', float('nan')):.3f} ms armed, "
-          f"{loop_serve['fold_ms_per_step']:.3f} ms LoRA-free (the loop leg's); "
-          f"lora_stats {json.dumps(lora['lora_stats'])}", flush=True)
+          f"{loop_serve['fold_ms_per_step']:.3f} ms LoRA-free (the loop leg's, 22 "
+          f"layers); lora_stats {json.dumps(lora['lora_stats'])}", flush=True)
     phase_end_s['lora_serving'] = time.monotonic() - start
     int8_serve = int8_serving_phase(ContinuousBatcher, DecoderLM, lm_mod, da, cfg,
                                     serve_prompts, serve_tokens, args.seed)
@@ -4811,13 +5099,14 @@ def main() -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             })
-    # The sp leg and the transfer leg run K2 + K1 at steps 1: launches
-    # counted by the sp-on run and by the transfer leg's greedy migration
-    # (source and target), each kernel checked and timed on one of the
-    # leg's own calls.
+    # The sp, transfer and capture legs run K2 + K1 at steps 1: launches
+    # counted by the sp-on run, by the transfer leg's greedy migration
+    # (source and target) and by the captured run, each kernel checked
+    # and timed on one of the leg's own calls.
     for leg, launched, measured in (
             ("sp", sp_serve["sp_on"]["launches"], sp_serve["kernels"]),
-            ("xfer", xfer["b_greedy"]["launches"], xfer["kernels"])):
+            ("xfer", xfer["b_greedy"]["launches"], xfer["kernels"]),
+            ("capture", capture["captured"]["launches"], capture["kernels"])):
         for name in ("paged_attention", "qkv_rope"):
             source, replaces = decode_sites[name]
             t = measured[name]
@@ -4848,7 +5137,7 @@ def main() -> int:
             "timing": rows + grows + vrows,
             "hf_llama": hf_llama, "hf_gpt2": hf_gpt2, "moe_serving": moe,
             "serving": serve, "loop_serving": loop_serve, "spec_serving": spec_serve,
-            "sp_serving": sp_serve, "transfer": xfer,
+            "sp_serving": sp_serve, "transfer": xfer, "capture_replay": capture,
             "generate": generate, "speculative": speculative,
             "dense_serving": dense_serve, "exactness_f32": exact,
             "spec_exactness_f32": spec_exact,

@@ -188,8 +188,9 @@ def test_pool_overflow_rejected(served):
     "kwargs",
     [
         # The dense engine is ported; its later-slice features are not.
-        dict(paged=False, capture="/nonexistent"),
-        dict(capture="/nonexistent"),
+        # (The capture plane is ported: tests/test_torch_replay.py.)
+        dict(paged=False, obs=object()),
+        dict(slo_objectives={"ttft_s": 1.0}),
         dict(obs=object()),
         # Options of those features: set, they raise rather than sit inert.
         dict(prompt_bucket=32),

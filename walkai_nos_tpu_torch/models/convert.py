@@ -25,7 +25,9 @@ float one cast down.
 
 `flax_params_from_model` goes the other way: a module's parameters as
 that tree (`unflatten_flax_params` inverts the flattening), which the
-HuggingFace exports of `models/hf.py` take.
+HuggingFace exports of `models/hf.py` take. `served_tree` is the same
+tree over the module's own tensors, in the dtypes and on the device the
+module holds them: what the capture plane's weights digest reads.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ __all__ = [
     "flatten_flax_params",
     "flax_params_from_model",
     "load_flax_params",
+    "served_tree",
     "unflatten_flax_params",
 ]
 
@@ -82,6 +85,14 @@ def flax_params_from_model(model: nn.Module) -> dict:
         t = p.detach().cpu()
         flat[name] = (t if t.dtype == torch.int8 else t.float()).numpy()
     return unflatten_flax_params(flat)
+
+
+def served_tree(model: nn.Module) -> dict:
+    """A module's parameters under the flax tree's names, as the module
+    holds them (no copy, no cast)."""
+    return unflatten_flax_params(
+        {name: p.detach() for name, p in model.named_parameters()}
+    )
 
 
 @torch.no_grad()

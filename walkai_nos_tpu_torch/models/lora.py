@@ -23,8 +23,8 @@ registry keeps JAX's three invariants:
 - alpha / r folds into B at load time.
 
 `AdapterSet` is the JAX registry over the same numpy host arrays (its
-`digests()` equal JAX's bit for bit: `tree_crc32` below writes each
-leaf's path as `jax.tree_util.keystr` does). `lora_delta` is the apply,
+`digests()` equal JAX's bit for bit: `obs/capture.tree_crc32` writes
+each leaf's path as `jax.tree_util.keystr` does). `lora_delta` is the apply,
 on tensors: a gather of the id rows and two batched products in f32
 (stock PyTorch, as JAX's are `jnp.einsum` outside any Pallas kernel).
 The engine (`models/serve.py`) owns the device copy of the stacks and
@@ -35,11 +35,12 @@ kv-head expansion.
 
 from __future__ import annotations
 
-import zlib
 from collections.abc import Mapping
 
 import numpy as np
 import torch
+
+from walkai_nos_tpu_torch.obs.capture import tree_crc32
 
 __all__ = [
     "AdapterSet",
@@ -86,42 +87,6 @@ def adapter_tag(adapter: int) -> bytes:
     if adapter == 0:
         return b""
     return np.int32(-adapter).tobytes()
-
-
-def _keystr(path) -> str:
-    return "".join(f"[{k!r}]" for k in path)
-
-
-def _leaves_with_path(tree, path=()):
-    """(path, leaf) pairs of a tree of mappings and sequences, as
-    `jax.tree_util.tree_leaves_with_path` walks it: a mapping's keys in
-    sorted order, a list's or tuple's items by index."""
-    if isinstance(tree, Mapping):
-        for key in sorted(tree):
-            yield from _leaves_with_path(tree[key], path + (key,))
-    elif isinstance(tree, (list, tuple)):
-        for i, item in enumerate(tree):
-            yield from _leaves_with_path(item, path + (i,))
-    elif tree is not None:
-        yield path, tree
-
-
-def tree_crc32(tree) -> int:
-    """JAX `obs/capture.tree_crc32`: CRC-32 accumulated over every leaf's
-    path (`jax.tree_util.keystr`'s form, `['block0']['qkv']['lora_a']`),
-    dtype, shape and raw bytes, leaves in path-sorted order. Leaves are
-    read with `np.asarray` (host tensors included)."""
-    crc = 0
-    leaves = sorted(
-        ((_keystr(p), leaf) for p, leaf in _leaves_with_path(tree)),
-        key=lambda kv: kv[0],
-    )
-    for path, leaf in leaves:
-        a = np.ascontiguousarray(np.asarray(leaf))
-        crc = zlib.crc32(path.encode(), crc)
-        crc = zlib.crc32(f"{a.dtype}:{a.shape}".encode(), crc)
-        crc = zlib.crc32(a.tobytes(), crc)
-    return crc
 
 
 class AdapterSet:

@@ -69,6 +69,16 @@ leave at EOS or their budget, without stopping the batch.
   tokens. Every row's K/V lands before any row's attention reads, so
   window j+1 sees window j of the same dispatch. `sp_stats()` reports
   it.
+- **Deterministic capture** (`capture=` a directory or an
+  `obs/capture.CaptureLog`): every accepted request's inputs (with its
+  effective seed, and its adapter on an armed engine) and every
+  completion's tokens and digest go to a bounded rotating on-disk ring
+  behind the engine's `config_fingerprint()` (every determinism-relevant
+  knob plus a digest of the served weights), at `submit` and at the
+  commit seam the chunk, the round and the fold share; `warm()` records
+  nothing. `sim/replay.py` replays a capture token for token;
+  `debug_state()` is the one-read snapshot its triage bundle keeps.
+  Capture files load in either package.
 - **Block transfer and live migration** (`models/serve_xfer.py`):
   `export_blocks` / `import_blocks` ship ready prefix blocks by content
   hash, `export_resident` / `import_resident` move accepted requests
@@ -105,12 +115,18 @@ What differs from the JAX engine, and why:
   streams over cache tiles on its accelerator: on the H100 the streamed
   tail (`ops/sp_prefill.py`, plain PyTorch) was the slower (PERF.md).
 - The engine's features of later slices raise NotImplementedError at
-  construction: `capture` and the `obs` telemetry planes, as does any
-  of their options (`slo_*`) set to other than its JAX default, and
+  construction: the `obs` telemetry planes, as does any of their
+  options (`slo_*`) set to other than its JAX default, and
   `prompt_bucket` in paged mode, where it does nothing (the engine
   keeps only the counters its stats views read,
-  `models/serve_stats.py`). `saturation`, `slo_ok`, `debug_state` and
-  `tp_stats` are not ported yet.
+  `models/serve_stats.py`). `saturation`, `slo_ok`, `slo_stats`,
+  `attrib_stats` and `tp_stats` are not ported yet, nor are
+  `debug_state()`'s `attrib`, `slo` and `tp` blocks.
+- The weights digest of `config_fingerprint()` covers the tree the
+  engine serves, read off its `DecoderLM` under the flax leaf names
+  (`models/convert.py`): with an f32 model the same leaves, dtypes and
+  bytes as the JAX engine's tree, so the two fingerprints are equal; a
+  bf16 model digests its bf16 leaves.
 """
 
 from __future__ import annotations
@@ -124,6 +140,7 @@ import numpy as np
 import torch
 
 from walkai_nos_tpu_torch.models.block_pool import BlockPool
+from walkai_nos_tpu_torch.models.convert import served_tree
 from walkai_nos_tpu_torch.models.lora import adapter_tag
 from walkai_nos_tpu_torch.models.lm import (
     DecoderLM,
@@ -147,6 +164,12 @@ from walkai_nos_tpu_torch.models.serve_lane import (
 )
 from walkai_nos_tpu_torch.models.serve_stats import EngineStats
 from walkai_nos_tpu_torch.models.serve_xfer import BlockTransfer
+from walkai_nos_tpu_torch.obs.capture import (
+    CaptureLog,
+    fingerprint_id,
+    token_digest,
+    tree_crc32,
+)
 from walkai_nos_tpu_torch.ops.decode_attention import MAX_KERNEL_STEPS, PAGE_ROWS
 
 __all__ = ["ContinuousBatcher"]
@@ -204,7 +227,6 @@ class ContinuousBatcher(BlockTransfer):
         device=None,
     ) -> None:
         for on, what, item in (
-            (capture is not None, "capture", "capture"),
             (not isinstance(obs, bool) or slo_objectives is not None
              or slo_window_s != 30.0, "the obs telemetry planes", "obs"),
             # The options of those features keep their JAX names; set to
@@ -215,6 +237,20 @@ class ContinuousBatcher(BlockTransfer):
         ):
             if on:
                 raise _not_ported(what, item)
+        # Config-fingerprint snapshot of the caller's config, taken before
+        # any replace (JAX :393-406): replay rebuilds from these fields and
+        # the engine re-derives the ones it owns.
+        self._fp_cfg = {
+            f.name: getattr(cfg, f.name)
+            for f in dataclasses.fields(cfg)
+            if f.name not in (
+                "ragged_decode", "paged_decode", "paged_blocks", "cache_len",
+            )
+        }
+        self._fingerprint: dict | None = None
+        # Validated up front; the log attaches at the end of the build,
+        # once the weights digest can cover the tree the engine serves.
+        self._capture = CaptureLog.coerce(capture)
         if loop_steps < 1:
             raise ValueError(f"loop_steps must be >= 1; got {loop_steps}")
         if loop_steps > 1 and not paged:
@@ -415,6 +451,10 @@ class ContinuousBatcher(BlockTransfer):
         # In-flight chunk: (host copy of its tokens, ready event or
         # None, slot->request snapshot, "first token expected" flags).
         self._inflight: tuple | None = None
+        # Armed last: the header pins the fingerprint, weights digest
+        # included; an unarmed engine never reads its weights back.
+        if self._capture is not None:
+            self._capture.attach(self.config_fingerprint(), obs=self.obs)
 
     # -- requests ----------------------------------------------------------
 
@@ -531,6 +571,21 @@ class ContinuousBatcher(BlockTransfer):
         self._pending.append(req)
         if self._adapters is not None:
             self.obs.lora_requests.inc(labels={"adapter": str(adapter)})
+        if self._capture is not None:
+            # The EFFECTIVE seed: a replay under fresh rids reproduces the
+            # original sampling streams.
+            self._capture.record_submit(
+                rid=rid, trace_id=req.trace_id, prompt=prompt.tolist(),
+                max_new_tokens=max_new_tokens, eos_id=eos_id,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                seed=req.seed,
+                arrival_s=round(
+                    self._capture.arrival_offset(req.submitted_at), 6
+                ),
+                # Armed engines pin the adapter id; unarmed captures stay
+                # byte-identical to adapter-free ones.
+                **({"adapter": adapter} if self._adapters is not None else {}),
+            )
         return rid
 
     def _reject(self, reason: str, message: str) -> ValueError:
@@ -607,13 +662,18 @@ class ContinuousBatcher(BlockTransfer):
         """Run the serving programs once off the request path (kernel
         builds, library handles): one admission burst per power-of-two
         lane width, each run to completion. Single-token prompts, so
-        the prefix index is untouched."""
-        width = 1
-        while width <= min(self.slots, self.prefill_lanes):
-            for _ in range(width):
-                self.submit([1], max_new_tokens=max_new_tokens)
-            self.run()
-            width *= 2
+        the prefix index is untouched. The capture plane records none of
+        it: warm-up traffic is not served traffic."""
+        cap, self._capture = self._capture, None
+        try:
+            width = 1
+            while width <= min(self.slots, self.prefill_lanes):
+                for _ in range(width):
+                    self.submit([1], max_new_tokens=max_new_tokens)
+                self.run()
+                width *= 2
+        finally:
+            self._capture = cap
 
     def drain(self) -> None:
         """Reject every further submit (reason `draining`) while all
@@ -630,8 +690,9 @@ class ContinuousBatcher(BlockTransfer):
     def drain_done_records(self) -> dict[int, dict]:
         """Pop every finished request with its serving record: tokens,
         ttft_s (submit -> first token known to the host), wall_s,
-        truncated, trace_id, fingerprint (None: no capture plane) and
-        adapter."""
+        truncated, trace_id, fingerprint (the config fingerprint's id,
+        None until `config_fingerprint()` ran: the capture that can replay
+        the request) and adapter."""
         done = {
             rid: {
                 "tokens": r.tokens,
@@ -639,7 +700,7 @@ class ContinuousBatcher(BlockTransfer):
                 "wall_s": r.completed_at - r.submitted_at,
                 "truncated": r.truncated,
                 "trace_id": r.trace_id,
-                "fingerprint": None,
+                "fingerprint": self.fingerprint_id,
                 "adapter": r.adapter,
             }
             for rid, r in self._requests.items()
@@ -921,6 +982,137 @@ class ContinuousBatcher(BlockTransfer):
             ),
         }
 
+    def debug_state(self) -> dict:
+        """One JSON-safe snapshot of the engine (the JAX engine's
+        `debug_state()`, without its `tp`, `attrib` and `slo` blocks):
+        slots, prefilling entries, the pool's books, and the prefix,
+        spec, loop, quant, sp, capture and LoRA views. The pool's
+        `in_use` is derived from the free and parked counts it is
+        reported beside, so the counts always sum to the pool."""
+        pool = self.pool
+        if self.paged:
+            free, parked = len(pool.free_blocks), pool.parked_count()
+            books = {
+                "blocks_total": self.pool_blocks,
+                "scratch_blocks": 1,
+                "free": free,
+                "parked": parked,
+                "in_use": self.pool_blocks - 1 - free - parked,
+                "reserved_virtual": int(pool.reserved),
+                "min_free_watermark": self.obs.pool_min_free.value(),
+            }
+        else:
+            books = {"blocks_total": 0, "scratch_blocks": 0, "free": 0,
+                     "parked": 0, "in_use": 0, "reserved_virtual": 0,
+                     "min_free_watermark": None}
+        slot_rows = []
+        for s in range(self.slots):
+            req = self._slot_req[s]
+            slot_rows.append({
+                "slot": s,
+                "rid": req.rid if req is not None else None,
+                "tokens_emitted": len(req.tokens) if req is not None else 0,
+                "budget_remaining": int(self._budget[s]),
+                "write_head": int(pool.slot_pos[s]) if self.paged else None,
+                "blocks": len(pool.slot_blocks[s]) if self.paged else None,
+            })
+        prefilling = [
+            {"rid": p.req.rid, "slot": p.slot, "consumed": p.consumed,
+             "prompt_len": len(p.req.prompt), "cached": p.cached, "sp": p.sp}
+            for p in self._prefilling
+        ]
+        return {
+            "paged": self.paged,
+            "queue_depth": len(self._pending),
+            "has_work": self.has_work,
+            "slots": slot_rows,
+            "prefilling": prefilling,
+            "pool": books,
+            "prefix": self.prefix_stats(),
+            "spec": self.spec_stats(),
+            "loop": self.loop_stats(),
+            "quant": self.quant_stats(),
+            "sp": self.sp_stats(),
+            "capture": self.capture_stats(),
+            "lora": self.lora_stats(),
+        }
+
+    # -- the capture plane -----------------------------------------------------
+
+    def config_fingerprint(self) -> dict:
+        """The engine's config fingerprint (the JAX engine's, field for
+        field): the caller's LMConfig fields, the engine's knobs, a CRC-32
+        of the weights it serves (and the draft's, with spec on) and the
+        adapter set's block; `id` is a short hash of the rest. The header
+        of every capture file; `sim/replay.py` rebuilds an engine from it.
+        Computed once and cached: the digest reads every weight back to
+        the host."""
+        if self._fingerprint is not None:
+            return self._fingerprint
+        fp = {
+            "version": 1,
+            "cfg": dict(self._fp_cfg),
+            "engine": {
+                "slots": self.slots,
+                "cache_len": self.cache_len,
+                "prompt_bucket": self.prompt_bucket,
+                "chunk_steps": self.chunk_steps,
+                "loop_steps": self.loop_steps,
+                "paged": self.paged,
+                "pool_blocks": self.pool_blocks,
+                # The dense engine has no lane (JAX records 0 for both).
+                "prefill_chunk": self.prefill_chunk if self.paged else 0,
+                "prefill_lanes": self.prefill_lanes if self.paged else 0,
+                "sp_prefill": self.sp_prefill,
+                "sp_min_tokens": self.sp_min_tokens,
+                "sp_span": self.sp_span,
+                "prefix_cache": self.paged and self.pool.prefix is not None,
+                "spec": self._spec,
+                "spec_k": self._spec_k,
+                "spec_min_accept": self._spec_min_accept,
+                "spec_warmup_rounds": self._spec_warmup,
+                "spec_ema_alpha": self._spec_alpha,
+            },
+            "weights_crc32": tree_crc32(served_tree(self.model)),
+        }
+        if self._spec:
+            d = self._draft_cfg
+            fp["draft"] = {
+                "weights_crc32": tree_crc32(served_tree(self._draft)),
+                "num_layers": d.num_layers,
+                "hidden_dim": d.hidden_dim,
+                "num_heads": d.num_heads,
+                "vocab_size": d.vocab_size,
+                "max_seq_len": d.max_seq_len,
+            }
+        if self._adapters is not None:
+            fp["lora"] = self._adapters.fingerprint()
+        fp["id"] = fingerprint_id(fp)
+        self._fingerprint = fp
+        return fp
+
+    @property
+    def fingerprint_id(self) -> str | None:
+        """Short id of the computed fingerprint; None until
+        `config_fingerprint()` ran (at build when capture is armed)."""
+        return self._fingerprint["id"] if self._fingerprint is not None else None
+
+    @property
+    def capture(self) -> CaptureLog | None:
+        """The armed capture log (None when capture is off)."""
+        return self._capture
+
+    def capture_stats(self) -> dict:
+        """Capture-plane status: the ring's files, record and byte tallies
+        and drop counts, and the fingerprint id completion records carry."""
+        if self._capture is None:
+            return {"enabled": False, "fingerprint": None}
+        return {
+            "enabled": True,
+            "fingerprint": self.fingerprint_id,
+            **self._capture.stats(),
+        }
+
     # -- multi-LoRA adapter plane ----------------------------------------------
 
     def _upload_adapters(self) -> None:
@@ -946,6 +1138,8 @@ class ContinuousBatcher(BlockTransfer):
         self.pool.drop_tagged(adapter_tag(adapter))
         self.obs.lora_load_seconds.inc(time.monotonic() - t0)
         self.obs.lora_resident.set(len(self._adapters.resident()))
+        # The fingerprint pins the adapter digests: recomputed on demand.
+        self._fingerprint = None
 
     def unload_adapter(self, adapter: int) -> None:
         """Evict adapter `adapter` (back to the all-zero identity; its id
@@ -955,6 +1149,7 @@ class ContinuousBatcher(BlockTransfer):
         self._upload_adapters()
         self.pool.drop_tagged(adapter_tag(adapter))
         self.obs.lora_resident.set(len(self._adapters.resident()))
+        self._fingerprint = None
 
     def _require_adapter_idle(self, adapter: int) -> None:
         if self._adapters is None:
@@ -1508,6 +1703,19 @@ class ContinuousBatcher(BlockTransfer):
                 else:
                     reason = "budget"
                 req.truncated = reason == "pool_overflow"
+                if self._capture is not None:
+                    # The one completion seam the chunk, the round and the
+                    # fold share: one done record per request.
+                    self._capture.record_done(
+                        rid=req.rid, trace_id=req.trace_id,
+                        tokens=list(req.tokens), n_tokens=len(req.tokens),
+                        digest=token_digest(req.tokens),
+                        ttft_s=round(req.first_token_at - req.submitted_at, 6),
+                        wall_s=round(now - req.submitted_at, 6),
+                        truncated=req.truncated, reason=reason,
+                        **({"adapter": req.adapter}
+                           if self._adapters is not None else {}),
+                    )
                 if self._slot_req[s] is req:
                     self._slot_req[s] = None
                     self._budget[s] = 0

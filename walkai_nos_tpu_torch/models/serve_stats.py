@@ -1,10 +1,13 @@
 """The serving engine's counters: the series `occupancy()`, `kv_stats()`,
 `prefix_stats()`, `spec_stats()`, `loop_stats()`, `lora_stats()` and
 `sp_stats()` read, under the JAX engine's names
-(`walkai_nos_tpu/obs/catalog.py`). The one exception is the
-block-transfer series (`xfer_*`): no view of the engine reads them, and
-they are kept, with the JAX engine's names and labels, for the reader
-the obs slice ports (its metrics registry).
+(`walkai_nos_tpu/obs/catalog.py`). The exceptions are the block-transfer
+series (`xfer_*`) and the capture plane's (`capture_records{kind}`,
+`capture_bytes`, `capture_dropped{reason}`, which `obs/capture.CaptureLog`
+increments; `capture_stats()` reads the log's own tallies, as JAX's
+does): no view of the engine reads them, and they are kept, with the
+JAX engine's names and labels, for the reader the obs slice ports (its
+metrics registry).
 
 The JAX engine keeps these in its `obs/` telemetry planes (registry,
 trace, SLO and attribution layers); those planes are not ported yet, so
@@ -101,3 +104,7 @@ class EngineStats:
         self.xfer_rejected = Counter()     # labels: reason
         self.xfer_bytes = Counter()        # labels: dir (in | out)
         self.xfer_migrated = Counter()     # requests; labels: dir
+        # The capture plane (cb_capture_*), written by obs/capture.py.
+        self.capture_records = Counter()   # labels: kind (submit | done)
+        self.capture_bytes = Counter()
+        self.capture_dropped = Counter()   # labels: reason

@@ -556,6 +556,26 @@ class BlockTransfer:
                 req.first_token_at = req.submitted_at + float(m["ttft_s"])
                 req.truncated = bool(m.get("truncated"))
                 self._requests[rid] = req
+                if self._capture is not None:
+                    # A fresh-submit record with the effective seed
+                    # (JAX :2740-2760): its replay runs the request from
+                    # the prompt to the whole stream the done record pins.
+                    # An armed engine adds the adapter id, which JAX's
+                    # record leaves out.
+                    self._capture.record_submit(
+                        rid=rid, trace_id=req.trace_id,
+                        prompt=prompt.tolist(),
+                        max_new_tokens=int(m["max_new_tokens"]),
+                        eos_id=m["eos_id"],
+                        temperature=float(m["temperature"]),
+                        top_k=int(m["top_k"]), top_p=float(m["top_p"]),
+                        seed=int(m["seed"]),
+                        arrival_s=round(
+                            self._capture.arrival_offset(req.submitted_at), 6
+                        ),
+                        **({"adapter": aid}
+                           if self._adapters is not None else {}),
+                    )
                 self._slot_req[s] = req
                 self._slot_new[s] = False
                 self._budget[s] = int(m["remaining"])
