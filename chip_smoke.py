@@ -37,7 +37,8 @@ the CUDA toolkit (`nvcc`). It:
    `ContinuousBatcher` at TinyLlama-1.1B width (22 layers, random bf16
    weights from --seed), checks every request, the kernels' launch
    counts, a prefix-cache hit, and that one request re-served alone on
-   a fresh engine gives the same tokens; then a profiled window (below);
+   a fresh engine gives the same tokens; then a profiled window (below,
+   at WINDOW_LAYERS layers);
 4a. serves them again with 256 new tokens each, with `loop_steps` 1 and
    with `loop_steps` 4 (`chunk_steps` 8): the device-resident loop, each
    fold one CUDA graph launch (chunks in conditional nodes,
@@ -92,11 +93,27 @@ the CUDA toolkit (`nvcc`). It:
    engines: as captured, `loop_steps` 1, prefix cache off, original
    timing and "int8-sim" KV, every digest verified; weights from another
    seed must diverge on every request and triage `config_dependent` with
-   a bundle that reads back; in f32 at 4 layers a spec capture (self
+   a bundle that reads back (at WINDOW_LAYERS layers, on a model of
+   its own); in f32 at 4 layers a spec capture (self
    draft) replays spec off and with a random draft; reported: records,
    bytes, files, the fingerprint's seconds, step time and TTFT captured
    and not, each replay's wall and K1/K2 launches; K2 and K1 checked and
    timed on one decode call of a replay;
+4f. (run right after 4) the telemetry leg: on the serving phase's
+   engine, which ran with telemetry on, the request trace's ttft / wall
+   equal the records', the histograms count the records, every
+   exposition line parses, the request counters equal the records, the
+   pool drained back to free and parked blocks, and the Chrome export
+   holds one done per request and one dispatch event per dispatch; the
+   same prompts then go through an `obs=False` engine (greedy tokens
+   equal, views flagged `obs_disabled`, an empty trace), the two arms
+   run on, off, on, off and report their step times and
+   `obs_overhead_pct` (not gated); then a child window (`--window
+   obs_profile`, WINDOW_LAYERS layers) arms the engine's own
+   `ProfileHook` for OBS_PROFILE_DISPATCHES dispatches of steady decode:
+   one completed window, no error, a trace file whose K1 and K2 kernel
+   events equal the launches their wrappers counted between the hook's
+   start and stop (layers x chunk steps x the dispatches in between);
 5. generates 128 tokens for 8 prompts through `make_generate_fn` at
    TinyLlama-1.1B width (dense cache, chunks of 16 steps): 22 K7
    launches per decode step, two runs give the same tokens, tokens/s,
@@ -199,14 +216,15 @@ the CUDA toolkit (`nvcc`). It:
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each profiled window (the decode kernels' launches, LM serving, the
-loop, generation, int8 serving, ViT serving, ViT training, LM training) runs
+loop, generation, int8 serving, ViT serving, ViT training, LM training,
+the telemetry profile hook) runs
 in a child process of its own (`--window NAME`: the
 script starts itself once per window and fails if a child fails); the
 profiler there must see every launch of the window's sentinel kernels
 that their wrappers counted, else the window fails. Its device-busy
-share and top kernels join the phase's report. The loop, spec, int8
-serving and generate windows run at 8 layers (`WINDOW_LAYERS`), the
-others (LM serving among them) at their phase's depth.
+share and top kernels join the phase's report. Every window but the
+MoE, ViT and LM training ones, and the LoRA and capture legs, run at 8
+layers (`WINDOW_LAYERS`); the others at their phase's depth.
 
 Any failed phase raises and the script exits non-zero; without a GPU it
 exits non-zero before printing any result. Long outputs also go to
@@ -798,7 +816,8 @@ def _serve_timed(engine, prompts, new: int, da, ids=None) -> dict:
     """Serves `prompts` (new tokens each, under the adapter ids `ids`, or
     the base model) through a warmed engine with the launch counts set to
     0 just before and read just after; returns its records, wall,
-    launches and dispatches."""
+    launches and dispatches. An engine with telemetry off counts no
+    dispatch: its dispatches, decode steps and step time are None."""
     torch.cuda.synchronize()
     da.reset_launch_counts()
     d0 = engine.obs.dispatches.value()
@@ -819,12 +838,14 @@ def _serve_timed(engine, prompts, new: int, da, ids=None) -> dict:
         if len(records[r]["tokens"]) != new:
             _fail(f"request {r} returned {len(records[r]['tokens'])} tokens")
     decode_steps = max(1, dispatches * engine.chunk_steps)
+    if not engine.obs.enabled:
+        dispatches = decode_steps = None
     return {"rids": rids, "records": records, "wall_s": wall,
             "launches": launches, "launches_at_steps": at_steps,
             "dispatches": dispatches,
             "decode_steps": decode_steps,
             "decode_tokens_per_s": new * len(rids) / wall,
-            "step_ms": wall / decode_steps * 1e3}
+            "step_ms": decode_steps and wall / decode_steps * 1e3}
 
 
 def _public(run: dict) -> dict:
@@ -1011,6 +1032,7 @@ def serving_phase(ContinuousBatcher, LMConfig, DecoderLM, da, seed: int) -> dict
     new = 32
     engine = ContinuousBatcher(cfg, model, **LM_ENGINE_KW)
     engine.warm()
+    obs0 = _obs_snapshot(engine)
     run = _serve_timed(engine, prompts, new, da)
     rids, records, launches = run["rids"], run["records"], run["launches"]
     for name in ("paged_attention", "qkv_rope"):
@@ -1048,7 +1070,217 @@ def serving_phase(ContinuousBatcher, LMConfig, DecoderLM, da, seed: int) -> dict
         "_cfg": cfg,
         "_prompts": prompts,
         "_tokens": [records[r]["tokens"] for r in rids],
+        # The telemetry leg's "on" arm: this engine, its run, and the
+        # registry just before the run.
+        "_obs_on": (engine, run, obs0),
     }
+
+
+# The telemetry leg (4f): the Prometheus sample-line grammar
+# (`tests/test_obs.py`'s), the profile hook's window in dispatches and the
+# new tokens of the window's requests (none finishes inside it).
+PROM_SAMPLE = re.compile(
+    r"^[a-zA-Z_:][a-zA-Z0-9_:]*"
+    r'(\{[a-zA-Z_][a-zA-Z0-9_]*="[^"]*"'
+    r'(,[a-zA-Z_+][a-zA-Z0-9_]*="[^"]*")*\})?'
+    r" -?[0-9]+(\.[0-9]+)?([eE][+-]?[0-9]+)?$"
+)
+OBS_PROFILE_DISPATCHES = 4
+OBS_WINDOW_NEW = 128
+
+
+def _obs_snapshot(engine) -> dict:
+    """The registry values the telemetry leg differences around a run."""
+    o = engine.obs
+    return {
+        "submitted": o.submitted.value(),
+        "completed_budget": o.completed.value({"reason": "budget"}),
+        "tokens": o.tokens.value(), "dispatches": o.dispatches.value(),
+        "ttft": o.ttft.count(), "tpot": o.tpot.count(), "wall": o.wall.count(),
+        "dispatch_latency": o.dispatch_latency.count(),
+        "t": time.monotonic(),
+    }
+
+
+def _obs_on_checks(engine, run: dict, obs0: dict) -> dict:
+    """Leg 4f's checks of the telemetry the serving phase's run wrote."""
+    obs, rids, records = engine.obs, run["rids"], run["records"]
+    n, new = len(rids), len(records[rids[0]]["tokens"])
+    d = {k: v - obs0[k] for k, v in _obs_snapshot(engine).items() if k != "t"}
+    for rid in rids:
+        rec = records[rid]
+        if (obs.trace.ttft_s(rid), obs.trace.wall_s(rid)) != (rec["ttft_s"], rec["wall_s"]):
+            _fail(f"obs leg: request {rid}'s trace gives ttft/wall "
+                  f"{obs.trace.ttft_s(rid)}/{obs.trace.wall_s(rid)}, its record "
+                  f"{rec['ttft_s']}/{rec['wall_s']}")
+    # A decode pace only where the last token came at a later sync.
+    paced = sum(1 for r in records.values()
+                if len(r["tokens"]) > 1 and r["wall_s"] > r["ttft_s"])
+    want = {"submitted": n, "completed_budget": n, "tokens": n * new,
+            "ttft": n, "wall": n, "tpot": paced, "dispatches": run["dispatches"],
+            "dispatch_latency": run["dispatches"]}
+    if d != want:
+        _fail(f"obs leg: registry deltas {d}, the records say {want}")
+    text = obs.render()
+    lines = [ln for ln in text.splitlines() if not ln.startswith("#")]
+    bad = [ln for ln in lines if not PROM_SAMPLE.match(ln)]
+    if bad or not lines:
+        _fail(f"obs leg: {len(bad)} exposition lines do not parse: {bad[:3]}")
+    free = obs.pool_blocks.value({"state": "free"})
+    parked = obs.pool_blocks.value({"state": "parked"})
+    used = obs.pool_blocks.value({"state": "used"})
+    if used != 0 or free + parked != engine.pool_blocks - 1:
+        _fail(f"obs leg: pool not drained: free {free}, parked {parked}, used {used}")
+    chrome = json.loads(json.dumps(obs.trace.chrome_trace()))
+    ring = [e for e in obs.trace.ring.snapshot() if e["t"] >= obs0["t"]]
+    done = [e for e in ring if e["name"] == "done" and e.get("rid") in records]
+    dispatch = [e for e in ring if e["name"] == "dispatch"]
+    device = [e for e in chrome["traceEvents"] if e["name"].startswith("device:")]
+    decode = {e["tid"] for e in chrome["traceEvents"] if e["name"] == "decode"}
+    all_dispatch = sum(1 for e in obs.trace.ring.snapshot() if e["name"] == "dispatch")
+    if (len(done) != n or len(dispatch) != run["dispatches"]
+            or len(device) != all_dispatch or not set(rids) <= decode
+            or obs.trace.ring.dropped):
+        _fail(f"obs leg: trace holds {len(done)} done of {n} requests, "
+              f"{len(dispatch)} dispatch events for {run['dispatches']} "
+              f"dispatches, {len(device)} device spans for {all_dispatch}, "
+              f"decode spans {sorted(decode)}, {obs.trace.ring.dropped} dropped")
+    kinds = {}
+    for e in dispatch:
+        kinds[e["args"]["kind"]] = kinds.get(e["args"]["kind"], 0) + 1
+    host = sorted(e["args"]["host_ms"] for e in dispatch)
+    dev = sorted(e["args"]["device_ms"] for e in dispatch)
+    return {"registry_deltas": d, "exposition_lines": len(lines),
+            "exposition_bytes": len(text), "dispatch_kinds": kinds,
+            "host_ms_p50": host[len(host) // 2], "device_ms_p50": dev[len(dev) // 2],
+            "chrome_events": len(chrome["traceEvents"]),
+            "pool": {"free": free, "parked": parked}}
+
+
+def obs_phase(ContinuousBatcher, da, model, cfg, prompts, tokens, on) -> dict:
+    """Leg 4f: the serving phase's engine (telemetry on) checked, then an
+    `obs=False` engine on the same model and prompts; the arms run on
+    (the serving phase's run), off, on, off, and each arm's step time and
+    the overhead of telemetry are reported (not gated)."""
+    engine, run_on, obs0 = on
+    new = len(tokens[0])
+    checks = _obs_on_checks(engine, run_on, obs0)
+    off = ContinuousBatcher(cfg, model, obs=False, **LM_ENGINE_KW)
+    off.warm()
+    runs = {"on": [run_on], "off": []}
+    for arm, eng in (("off", off), ("on", engine), ("off", off)):
+        runs[arm].append(_serve_timed(eng, prompts, new, da))
+    for i, (a, b) in enumerate(zip(runs["on"], runs["off"])):
+        if [b["records"][r]["tokens"] for r in b["rids"]] != tokens:
+            _fail(f"obs leg: obs=False run {i} gave other tokens than the on arm")
+        if [a["records"][r]["tokens"] for r in a["rids"]] != tokens:
+            _fail(f"obs leg: on run {i} gave other tokens")
+        # The same work: the off arm counts no dispatch, so its step time
+        # takes the on arm's decode steps once the launches agree.
+        if a["launches"] != b["launches"]:
+            _fail(f"obs leg: run {i} launched {b['launches']} off, {a['launches']} on")
+        b["decode_steps"] = a["decode_steps"]
+        b["step_ms"] = b["wall_s"] / a["decode_steps"] * 1e3
+    occ, kv = off.occupancy(), off.kv_stats()
+    if not (occ.get("obs_disabled") and kv.get("obs_disabled")
+            and occ["total_slot_steps"] == 0):
+        _fail(f"obs leg: obs=False views {occ}, {kv}")
+    if (off.obs.trace.ring.snapshot() or off.obs.trace.chrome_trace()["traceEvents"]
+            or off.obs.render() != "\n"):
+        _fail("obs leg: the obs=False engine recorded telemetry")
+    on_ms = [r["step_ms"] for r in runs["on"]]
+    off_ms = [r["step_ms"] for r in runs["off"]]
+    launches = {k: sum(r["launches"][k] for r in runs["on"][1:] + runs["off"])
+                for k in ("paged_attention", "qkv_rope")}
+    return {
+        "checks": checks, "new_tokens_each": new, "requests": len(tokens),
+        "order": "on off on off",
+        "step_ms": {"on": on_ms, "off": off_ms},
+        "wall_s": {"on": [r["wall_s"] for r in runs["on"]],
+                   "off": [r["wall_s"] for r in runs["off"]]},
+        "obs_overhead_pct": (sum(on_ms) / sum(off_ms) - 1) * 100,
+        # Per pair: run 1 cold (the on arm first in the process at full
+        # prompt lengths), run 2 with the prefix cache warm.
+        "pair_overhead_pct": [(a / b - 1) * 100 for a, b in zip(on_ms, off_ms)],
+        "launches": launches, "decode_steps": runs["on"][0]["decode_steps"],
+    }
+
+
+def window_obs_profile(seed: int) -> dict:
+    """The engine's own `ProfileHook` (`obs/profile.py`) armed for
+    OBS_PROFILE_DISPATCHES dispatches of steady decode on a warmed paged
+    engine at TinyLlama-1.1B widths and WINDOW_LAYERS layers: one
+    completed window, no error, a trace file, and in it as many K1 and K2
+    kernel events as their wrappers counted between the hook's profiler
+    start and stop. The hook's window spans the launches between its
+    first tick and its last (the last tick stops the profiler before its
+    dispatch launches): dispatches - 1 decode chunks."""
+    import dataclasses
+
+    from walkai_nos_tpu_torch.models.lm import DecoderLM, LMConfig
+    from walkai_nos_tpu_torch.models.serve import ContinuousBatcher
+    from walkai_nos_tpu_torch.ops import decode_attention as da
+
+    cfg = dataclasses.replace(_tinyllama_cfg(LMConfig), num_layers=WINDOW_LAYERS)
+    engine = ContinuousBatcher(cfg, DecoderLM(cfg, device="cuda", seed=seed),
+                               **LM_ENGINE_KW)
+    engine.warm()
+    rids = [engine.submit(p, max_new_tokens=OBS_WINDOW_NEW)
+            for p in _serving_prompts(cfg, seed)[:4]]
+    while engine._pending or engine._prefilling:
+        engine.step()
+    hook = engine.obs.profile
+    snaps = {}
+    start, stop = hook._start, hook._stop
+
+    def counted_start(logdir):
+        snaps["start"] = dict(da.LAUNCHES)
+        return start(logdir)
+
+    def counted_stop():
+        snaps["stop"] = dict(da.LAUNCHES)
+        stop()
+
+    hook._start, hook._stop = counted_start, counted_stop
+    # The trace (~27 MB at 8 layers, CPU activity included) is read here
+    # and deleted.
+    logdir = os.path.join("chip_smoke_work", "obs_profile")
+    shutil.rmtree(logdir, ignore_errors=True)
+    hook.arm(OBS_PROFILE_DISPATCHES, logdir)
+    d0 = engine.obs.dispatches.value()
+    t0 = time.monotonic()
+    while engine.has_work and not hook.status()["completed_windows"]:
+        engine.step()
+    wall = time.monotonic() - t0
+    dispatches = int(engine.obs.dispatches.value() - d0)
+    status = hook.status()
+    out = engine.run()
+    if any(len(out[r]) != OBS_WINDOW_NEW for r in rids):
+        _fail("obs profile window: a request came back short")
+    path = status["last_trace"]
+    if (status["completed_windows"] != 1 or status["last_error"] is not None
+            or status["active"] or not path or not os.path.exists(path)):
+        _fail(f"obs profile window: hook status {status}")
+    launches = {k: v - snaps["start"].get(k, 0) for k, v in snaps["stop"].items()}
+    want = WINDOW_LAYERS * engine.chunk_steps * (OBS_PROFILE_DISPATCHES - 1)
+    if (launches["paged_attention"], launches["qkv_rope"]) != (want, want):
+        _fail(f"obs profile window: wrappers counted {launches}, want {want} "
+              f"each of K1 and K2 ({WINDOW_LAYERS} layers x {engine.chunk_steps} "
+              f"steps x {OBS_PROFILE_DISPATCHES - 1} dispatches)")
+    trace_bytes = os.path.getsize(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    shutil.rmtree(logdir, ignore_errors=True)
+    rows = [(e.get("dur", 0), 1, e["name"]) for e in events
+            if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    seen = _check_window(rows, launches, {"paged_attention": "decode_mma_kernel",
+                                          "qkv_rope": "qkv_mma_kernel"})
+    return {"dispatches_armed": OBS_PROFILE_DISPATCHES,
+            "dispatches_stepped": dispatches, "layers": WINDOW_LAYERS,
+            "wall_s": wall, "status": status, "trace_bytes": trace_bytes,
+            "trace_events": len(events), "kernel_events": len(rows),
+            "device_kernel_ms": sum(r[0] for r in rows) / 1e3,
+            "sentinel_launches": seen}
 
 
 # The device-resident loop's and the speculative rounds' legs (TinyLlama
@@ -1058,9 +1290,9 @@ LOOP_STEPS = 4
 LOOP_NEW = 256
 SPEC_K = 4
 SPEC_NEW = 32
-# The depth of the loop, spec, int8 serving and generate windows and of
-# the LoRA leg (a child's start-up and the trace it reads grow with the
-# layers; the script's time budget). The LM serving window runs all 22.
+# The depth of the LM serving, loop, spec, int8 serving, generate and
+# obs_profile windows and of the LoRA and capture legs (a child's start-up
+# and the trace it reads grow with the layers; the script's time budget).
 WINDOW_LAYERS = 8
 
 
@@ -1710,19 +1942,18 @@ def _check_window(rows, launches: dict, sentinels: dict) -> dict:
 
 def window_lm_serving(seed: int, quant: str | None = None) -> dict:
     """4 of the serving prompts x 32 new tokens through a warmed paged
-    engine at TinyLlama-1.1B widths (bf16, all 22 layers; or int8 KV +
-    weights at WINDOW_LAYERS layers); sentinels K1 and K2 (their int8
-    arms for int8)."""
+    engine at TinyLlama-1.1B widths and WINDOW_LAYERS layers (bf16, or
+    int8 KV + weights; the depth is the script's time);
+    sentinels K1 and K2 (their int8 arms for int8)."""
     import dataclasses
 
     from walkai_nos_tpu_torch.models.lm import DecoderLM, LMConfig
     from walkai_nos_tpu_torch.models.serve import ContinuousBatcher
     from walkai_nos_tpu_torch.ops import decode_attention as da
 
-    cfg = _tinyllama_cfg(LMConfig)
+    cfg = dataclasses.replace(_tinyllama_cfg(LMConfig), num_layers=WINDOW_LAYERS)
     if quant:
-        cfg = dataclasses.replace(cfg, kv_dtype=quant, w_dtype=quant,
-                                  num_layers=WINDOW_LAYERS)
+        cfg = dataclasses.replace(cfg, kv_dtype=quant, w_dtype=quant)
     engine = ContinuousBatcher(cfg, DecoderLM(cfg, device="cuda", seed=seed),
                                **LM_ENGINE_KW)
     engine.warm()
@@ -2121,9 +2352,9 @@ def _lane_log(engine, serve_mod, sink: dict):
     sink.setdefault("rids", [])
     sink.setdefault("events", [])
 
-    def logged():
+    def logged(*args):
         sink["rids"].append([p.req.rid for p in engine._prefilling])
-        return prepare()
+        return prepare(*args)
 
     def timed(*args):
         start = torch.cuda.Event(enable_timing=True)
@@ -2378,7 +2609,7 @@ def transfer_phase(ContinuousBatcher, DecoderLM, lm_mod, da, model, cfg, prompts
     return out
 
 
-# The capture leg (TinyLlama width, 22 layers, bf16): the serving prompts,
+# The capture leg (TinyLlama width, WINDOW_LAYERS layers, bf16): the serving prompts,
 # four greedy and four sampled, then prompts 0 and 7 again (prefix hits),
 # captured through a small ring and replayed on fresh engines.
 CAPTURE_NEW = 32
@@ -2469,9 +2700,9 @@ def _replayed(replay_mod, cap, engine, what: str, params, overrides=None,
 
 
 def capture_replay_phase(ContinuousBatcher, lm_mod, replay_mod, capture_mod, da,
-                         model, cfg, prompts, seed: int) -> dict:
-    """The capture plane at TinyLlama-1.1B width (`obs/capture.py`,
-    `sim/replay.py`): one uncaptured and one captured run of the leg's
+                         cfg, prompts, seed: int) -> dict:
+    """The capture plane at TinyLlama-1.1B widths and WINDOW_LAYERS layers,
+    on a model of its own (`obs/capture.py`, `sim/replay.py`): one uncaptured and one captured run of the leg's
     traffic on `CAPTURE_KW` engines (loop_steps 4, prefix cache on, the
     fused route: K2 + K1), the second recorded through a ring that must
     rotate and drop nothing; then replays on fresh `build_engine` engines,
@@ -2486,8 +2717,11 @@ def capture_replay_phase(ContinuousBatcher, lm_mod, replay_mod, capture_mod, da,
     import dataclasses
     import tempfile
 
+    # WINDOW_LAYERS layers: the script's time.
+    cfg = dataclasses.replace(cfg, num_layers=WINDOW_LAYERS)
+    model = lm_mod.DecoderLM(cfg, device="cuda", seed=seed)
     out = {"requests": len(prompts) + 2, "new_tokens_each": CAPTURE_NEW,
-           "engine": dict(CAPTURE_KW)}
+           "layers": cfg.num_layers, "engine": dict(CAPTURE_KW)}
     plain = ContinuousBatcher(cfg, model, **CAPTURE_KW)
     plain.warm()
     out["uncaptured"] = _public(_capture_traffic(plain, prompts, CAPTURE_NEW, da))
@@ -2604,8 +2838,9 @@ def capture_replay_phase(ContinuousBatcher, lm_mod, replay_mod, capture_mod, da,
                 "new_tokens_each": CAPTURE_SPEC_NEW, "capture_wall_s": spec_run["wall_s"]}
         for what, overrides in (("spec_off", {"spec": False}),
                                 ("spec_random_draft", None)):
+            # Telemetry on: the random-draft replay reports its spec_stats().
             eng = replay_mod.build_engine(cap32.fingerprint, m32, overrides=overrides,
-                                          device="cuda", draft_seed=seed + 5)
+                                          device="cuda", draft_seed=seed + 5, obs=True)
             spec[what] = _replayed(replay_mod, cap32, eng, f"f32 {what}", m32, overrides)
             if overrides is None:
                 spec[what]["spec_stats"] = eng.spec_stats()
@@ -2613,6 +2848,7 @@ def capture_replay_phase(ContinuousBatcher, lm_mod, replay_mod, capture_mod, da,
         out["spec_f32"] = spec
         del m32
     finally:
+        del model
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     return out
@@ -4369,6 +4605,7 @@ WINDOWS = {
     "lm_serving_moe": window_lm_serving_moe,
     "loop_serving": window_loop_serving,
     "spec_serving": window_spec_serving,
+    "obs_profile": window_obs_profile,
 }
 
 
@@ -4781,6 +5018,24 @@ def main() -> int:
     model, cfg = serve.pop("_model"), serve.pop("_cfg")
     serve_prompts = serve.pop("_prompts")
     serve_tokens = serve.pop("_tokens")
+    obs_on = serve.pop("_obs_on")
+    obs = obs_phase(ContinuousBatcher, da, model, cfg, serve_prompts, serve_tokens,
+                    obs_on)
+    del obs_on
+    obs["profile"] = window = run_window("obs_profile", args.seed)
+    print(json.dumps({"obs": obs}), flush=True)
+    print(f"Obs on {smi}: step ms on {[round(x, 3) for x in obs['step_ms']['on']]}, "
+          f"off {[round(x, 3) for x in obs['step_ms']['off']]} (order "
+          f"{obs['order']}), obs_overhead_pct {obs['obs_overhead_pct']:.2f} (pairs "
+          f"{[round(x, 2) for x in obs['pair_overhead_pct']]}); "
+          f"{obs['checks']['exposition_lines']} exposition lines, dispatch kinds "
+          f"{obs['checks']['dispatch_kinds']}; profile hook window: "
+          f"{window['status']['completed_windows']} completed, K1/K2 kernel events "
+          f"{window['sentinel_launches']['paged_attention']['launches']}/"
+          f"{window['sentinel_launches']['qkv_rope']['launches']} over "
+          f"{window['dispatches_armed']} dispatches at {window['layers']} layers, "
+          f"trace {window['trace_bytes']} bytes", flush=True)
+    phase_end_s['obs'] = time.monotonic() - start
     serve["profile"] = run_window("lm_serving", args.seed)
     print(json.dumps({"serving": serve}), flush=True)
     phase_end_s['lm_serving'] = time.monotonic() - start
@@ -4806,7 +5061,7 @@ def main() -> int:
         for k, v in xfer.items() if "payload_mb" in v), flush=True)
     phase_end_s['transfer'] = time.monotonic() - start
     capture = capture_replay_phase(ContinuousBatcher, lm_mod, replay_mod, capture_mod,
-                                   da, model, cfg, serve_prompts, args.seed)
+                                   da, cfg, serve_prompts, args.seed)
     print(json.dumps({"capture_replay": capture}), flush=True)
     ring, runs = capture["ring"], (capture["uncaptured"], capture["captured"])
     print(f"Capture on {smi}: {ring['records']} records, {ring['bytes']} bytes, "
@@ -5075,16 +5330,20 @@ def main() -> int:
     # speculative legs at steps k+1 on a verify's own inputs, their
     # launches the wrappers' count at steps k+1 in the first leg (bf16
     # and int8).
-    for name in ("paged_attention", "qkv_rope"):
-        source, replaces = decode_sites[name]
-        t = next(r for r in rows if r["kernel"] == name and r["steps"] == 1)
-        kernels.append({
-            "name": f"{name}_loop", "route": "cuda", "source": f"{src}{source}",
-            "replaces": replaces, "launches": loop_serve["launches"][name],
-            "max_abs_err": next(k["max_abs_err"] for k in kernels if k["name"] == name),
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        })
+    # The telemetry leg (4f) runs the serving path's K2 + K1 at steps 1 too
+    # (times of the kernel phase), launched by its off, on, off runs.
+    for leg, launched in (("loop", loop_serve["launches"]), ("obs", obs["launches"])):
+        for name in ("paged_attention", "qkv_rope"):
+            source, replaces = decode_sites[name]
+            t = next(r for r in rows if r["kernel"] == name and r["steps"] == 1)
+            kernels.append({
+                "name": f"{name}_{leg}", "route": "cuda", "source": f"{src}{source}",
+                "replaces": replaces, "launches": launched[name],
+                "max_abs_err": next(k["max_abs_err"] for k in kernels
+                                    if k["name"] == name),
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            })
     for arm, spec in (("", spec_serve), ("_int8", int8_serve["spec_serving"])):
         first = next(leg for leg in spec.values()
                      if isinstance(leg, dict) and "verify_launches" in leg)
@@ -5136,7 +5395,8 @@ def main() -> int:
             "decode_launches": decode_launches,
             "timing": rows + grows + vrows,
             "hf_llama": hf_llama, "hf_gpt2": hf_gpt2, "moe_serving": moe,
-            "serving": serve, "loop_serving": loop_serve, "spec_serving": spec_serve,
+            "serving": serve, "obs": obs, "loop_serving": loop_serve,
+            "spec_serving": spec_serve,
             "sp_serving": sp_serve, "transfer": xfer, "capture_replay": capture,
             "generate": generate, "speculative": speculative,
             "dense_serving": dense_serve, "exactness_f32": exact,

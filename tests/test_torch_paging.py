@@ -20,7 +20,7 @@ from walkai_nos_tpu.ops.decode_attention import PAGE_ROWS as J_PAGE_ROWS
 from walkai_nos_tpu_torch.models import block_key as tbk
 from walkai_nos_tpu_torch.models import block_pool as tbp
 from walkai_nos_tpu_torch.models import prefix_cache as tpc
-from walkai_nos_tpu_torch.models.serve_stats import EngineStats
+from walkai_nos_tpu_torch.obs.serving import ServingObs
 from walkai_nos_tpu_torch.ops.decode_attention import PAGE_ROWS
 
 SLOTS, CACHE_LEN, POOL_BLOCKS = 3, 512, 12
@@ -49,7 +49,7 @@ class _Books:
     def __init__(self, bp, pc):
         self.pool = bp.BlockPool(
             slots=SLOTS, cache_len=CACHE_LEN, pool_blocks=POOL_BLOCKS,
-            prefix=pc.PrefixIndex(PAGE_ROWS), obs=EngineStats(),
+            prefix=pc.PrefixIndex(PAGE_ROWS), obs=ServingObs(),
         )
         self.grabbed: list[int] = []
 

@@ -212,8 +212,35 @@ def test_capture_is_accepted_and_obs_still_refused(params, tmp_path):
     assert engine.capture_stats()["fingerprint"] == engine.fingerprint_id
     with pytest.raises(ValueError, match="capture must be"):
         _port(params, capture=12345)
-    with pytest.raises(NotImplementedError, match="obs"):
-        _port(params, obs=object())
+    # The obs planes' SLO windows are still refused.
+    with pytest.raises(NotImplementedError, match="SLO"):
+        _port(params, slo_window_s=5.0)
+
+
+def test_jax_paged_prompt_bucket_capture_replays_in_the_port(tmp_path):
+    """A JAX paged engine at `prompt_bucket=64` (LM_TINY's widths in f32,
+    2 slots, cache_len 128; the demo server's bucket): the port builds
+    the same engine, with an equal fingerprint, and replays the capture
+    token for token."""
+    import dataclasses
+
+    jcfg = dataclasses.replace(jlm.LM_TINY, dtype="float32")
+    tcfg = dataclasses.replace(tlm.LM_TINY, dtype="float32")
+    weights = jax.device_get(
+        jlm.DecoderLM(jcfg).init_params(jax.random.PRNGKey(3)))
+    kw = dict(slots=2, cache_len=128, prompt_bucket=64)
+    jeng = JaxBatcher(jcfg, weights, capture=str(tmp_path), **kw)
+    rng = np.random.default_rng(3)
+    for n, m in ((5, 9), (70, 12), (40, 20)):
+        jeng.submit(rng.integers(0, jcfg.vocab_size, n).tolist(), max_new_tokens=m)
+    jeng.run()
+    port = ContinuousBatcher(tcfg, weights, device="cpu", **kw)
+    assert port.config_fingerprint() == jeng.config_fingerprint()
+    cap = trep.load_capture(str(tmp_path))
+    assert cap.fingerprint["engine"]["prompt_bucket"] == 64
+    report = trep.replay_capture(cap, weights, device="cpu")
+    assert report.ok, report.summary()
+    assert report.n_verified == len(cap.records) == 3
 
 
 def test_load_adapter_resets_the_fingerprint(params):

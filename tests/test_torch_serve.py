@@ -187,19 +187,33 @@ def test_pool_overflow_rejected(served):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        # The dense engine is ported; its later-slice features are not.
-        # (The capture plane is ported: tests/test_torch_replay.py.)
-        dict(paged=False, obs=object()),
+        # The SLO windows are not ported: their options, set, raise rather
+        # than sit inert. (The obs planes are: tests/test_torch_serve_obs.py.)
         dict(slo_objectives={"ttft_s": 1.0}),
-        dict(obs=object()),
-        # Options of those features: set, they raise rather than sit inert.
-        dict(prompt_bucket=32),
         dict(slo_window_s=5.0),
     ],
 )
 def test_later_slice_features_raise(served, kwargs):
     with pytest.raises(NotImplementedError):
         _port(served, **kwargs)
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        # As in JAX: an `obs` that is no ServingObs is a truthy flag, on
+        # either engine, and the paged engine takes any prompt_bucket up
+        # to cache_len into its fingerprint.
+        dict(paged=False, obs=object()),
+        dict(obs=object()),
+        dict(prompt_bucket=32),
+    ],
+)
+def test_former_later_slice_options_build(served, kwargs):
+    engine = _port(served, **kwargs)
+    assert engine.obs.enabled
+    fp = engine.config_fingerprint()["engine"]
+    assert fp["prompt_bucket"] == kwargs.get("prompt_bucket", 16)
 
 
 @pytest.mark.parametrize(

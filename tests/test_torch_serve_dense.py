@@ -122,5 +122,6 @@ def test_prompt_bucket_rules(served):
     with pytest.raises(ValueError, match="prompt_bucket 512 exceeds"):
         _port(served, prompt_bucket=512)
     _port(served, prompt_bucket=64)  # a dense-engine option: accepted
-    with pytest.raises(NotImplementedError, match="prompt_bucket"):
-        _port(served, paged=True, prompt_bucket=64)  # inert when paged
+    # Accepted in paged mode too, as in JAX, and fingerprinted.
+    engine = _port(served, paged=True, prompt_bucket=64)
+    assert engine.config_fingerprint()["engine"]["prompt_bucket"] == 64

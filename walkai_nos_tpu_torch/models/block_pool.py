@@ -40,8 +40,8 @@ Semantics (unchanged from the in-engine version):
 
 The pool records its own gauges (`cb_kv_pool_blocks{state}`,
 `cb_kv_pool_blocks_min_free`, `cb_prefix_evictions_total`,
-`cb_prefix_cached_tokens`) through the engine's stats bundle
-(`models/serve_stats.py`);
+`cb_prefix_cached_tokens`) through the engine's telemetry bundle
+(`obs/serving.ServingObs`);
 request/budget decisions (truncation, completion reasons) stay in the
 engine — the pool never sees a request.
 """

@@ -114,14 +114,20 @@ What differs from the JAX engine, and why:
   chunks keep the dense attention tail on both devices, where JAX
   streams over cache tiles on its accelerator: on the H100 the streamed
   tail (`ops/sp_prefill.py`, plain PyTorch) was the slower (PERF.md).
-- The engine's features of later slices raise NotImplementedError at
-  construction: the `obs` telemetry planes, as does any of their
-  options (`slo_*`) set to other than its JAX default, and
-  `prompt_bucket` in paged mode, where it does nothing (the engine
-  keeps only the counters its stats views read,
-  `models/serve_stats.py`). `saturation`, `slo_ok`, `slo_stats`,
-  `attrib_stats` and `tp_stats` are not ported yet, nor are
-  `debug_state()`'s `attrib`, `slo` and `tp` blocks.
+- Telemetry (`self.obs`, an `obs/serving.ServingObs`): the engine writes
+  the registry series and trace events the JAX engine writes, at the
+  same points, host-side at its sync points; `obs=False` builds the
+  no-op bundle and the views flag their zeros `obs_disabled`, a
+  `ServingObs` passed in is shared. A dispatch's trace event carries its
+  host assembly time (assembly start to the return of its launches) and
+  the time the host blocked at the sync the engine already makes. The
+  SLO windows (`slo_*`, which raise NotImplementedError set to other
+  than their JAX defaults) and `DispatchAttribution` are not ported yet:
+  their series are registered and stay unwritten, and `saturation`,
+  `slo_ok`, `slo_stats`, `attrib_stats`, `tp_stats` and
+  `debug_state()`'s `attrib`, `slo` and `tp` blocks wait with them.
+  `prompt_bucket` is fingerprinted in paged mode, where, as in JAX, the
+  lane does not read it.
 - The weights digest of `config_fingerprint()` covers the tree the
   engine serves, read off its `DecoderLM` under the flax leaf names
   (`models/convert.py`): with an f32 model the same leaves, dtypes and
@@ -162,14 +168,15 @@ from walkai_nos_tpu_torch.models.serve_lane import (
     spec_round,
     to_device,
 )
-from walkai_nos_tpu_torch.models.serve_stats import EngineStats
 from walkai_nos_tpu_torch.models.serve_xfer import BlockTransfer
+from walkai_nos_tpu_torch.obs.attrib import classify_dispatch
 from walkai_nos_tpu_torch.obs.capture import (
     CaptureLog,
     fingerprint_id,
     token_digest,
     tree_crc32,
 )
+from walkai_nos_tpu_torch.obs.serving import ServingObs
 from walkai_nos_tpu_torch.ops.decode_attention import MAX_KERNEL_STEPS, PAGE_ROWS
 
 __all__ = ["ContinuousBatcher"]
@@ -177,6 +184,11 @@ __all__ = ["ContinuousBatcher"]
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """A storage dtype under the JAX engine's label ("bfloat16", "int8")."""
+    return str(dtype).removeprefix("torch.")
 
 
 class ContinuousBatcher(BlockTransfer):
@@ -219,24 +231,17 @@ class ContinuousBatcher(BlockTransfer):
         spec_min_accept: float = 0.35,
         spec_warmup_rounds: int = 16,
         spec_ema_alpha: float = 0.25,
-        obs: bool = True,
+        obs: bool | ServingObs = True,
         slo_window_s: float = 30.0,
         slo_objectives: dict | None = None,
         capture=None,
         adapters=None,
         device=None,
     ) -> None:
-        for on, what, item in (
-            (not isinstance(obs, bool) or slo_objectives is not None
-             or slo_window_s != 30.0, "the obs telemetry planes", "obs"),
-            # The options of those features keep their JAX names; set to
-            # anything but the JAX default they raise, never sit inert.
-            (paged and prompt_bucket != 16,
-             "prompt_bucket in paged mode (a dense-engine option)",
-             "engine features"),
-        ):
-            if on:
-                raise _not_ported(what, item)
+        if slo_objectives is not None or slo_window_s != 30.0:
+            # The SLO options keep their JAX names; set to anything but
+            # the JAX default they raise, never sit inert.
+            raise _not_ported("the SLO windows (slo_*)", "obs")
         # Config-fingerprint snapshot of the caller's config, taken before
         # any replace (JAX :393-406): replay rebuilds from these fields and
         # the engine re-derives the ones it owns.
@@ -278,7 +283,11 @@ class ContinuousBatcher(BlockTransfer):
         self.loop_steps = loop_steps
         self.paged = paged
         self._nlog = -(-cache_len // PAGE_ROWS)
-        self.obs = EngineStats()
+        # The registry is the one source of every cumulative count the
+        # views read; `obs=False` builds the no-op bundle (JAX :632-635).
+        self.obs = obs if isinstance(obs, ServingObs) else ServingObs(
+            enabled=bool(obs)
+        )
         if paged:
             self.pool_blocks = pool_blocks or slots * self._nlog + 1
             if self.pool_blocks < 2:
@@ -394,7 +403,7 @@ class ContinuousBatcher(BlockTransfer):
             params = quantize_lm_params(params, self.cfg)
         if self._spec and isinstance(draft_params, Mapping):
             draft_params = quantize_lm_params(draft_params, self._draft_cfg)
-        self._quant_seconds = time.monotonic() - t_quant
+        self.obs.quant_seconds.inc(time.monotonic() - t_quant)
         self.model = DecoderLM.from_params(self.cfg, params, device)
         self.device = self.model.device
         cache = (
@@ -427,6 +436,7 @@ class ContinuousBatcher(BlockTransfer):
             self._d_cache = PagedCache.zeros(self._draft_cfg, self.device)
             self.obs.spec_k_gauge.set(spec_k)
             self.obs.spec_disabled.set(0)
+        self._record_kv_backing_bytes()
         self._loop = None
         if loop_steps > 1:
             self._loop = DecodeLoop(
@@ -569,8 +579,16 @@ class ContinuousBatcher(BlockTransfer):
         )
         self._requests[rid] = req
         self._pending.append(req)
+        self.obs.submitted.inc()
         if self._adapters is not None:
             self.obs.lora_requests.inc(labels={"adapter": str(adapter)})
+        self.obs.queue_depth.set(len(self._pending))
+        # The span clock is the request's own stored timestamp, so
+        # trace-derived ttft/wall equal drain_done_records exactly.
+        self.obs.trace.submit(
+            rid, req.submitted_at, len(prompt), max_new_tokens,
+            trace_id=req.trace_id,
+        )
         if self._capture is not None:
             # The EFFECTIVE seed: a replay under fresh rids reproduces the
             # original sampling streams.
@@ -590,6 +608,7 @@ class ContinuousBatcher(BlockTransfer):
 
     def _reject(self, reason: str, message: str) -> ValueError:
         self.obs.errors.inc(labels={"reason": reason})
+        self.obs.trace.error(time.monotonic(), reason)
         return ValueError(message)
 
     # -- driving -------------------------------------------------------------
@@ -678,7 +697,10 @@ class ContinuousBatcher(BlockTransfer):
     def drain(self) -> None:
         """Reject every further submit (reason `draining`) while all
         accepted work runs to completion. One-way."""
+        if self._draining:
+            return
         self._draining = True
+        self.obs.trace.event("drain", time.monotonic())
 
     def drain_done(self) -> dict[int, list[int]]:
         """Pop every finished request's tokens."""
@@ -787,7 +809,14 @@ class ContinuousBatcher(BlockTransfer):
             "busy_slot_steps": busy,
             "total_slot_steps": total,
             "occupancy": round(busy / max(1, total), 4),
+            **self._off(),
         }
+
+    def _off(self) -> dict:
+        """`{"obs_disabled": True}` with telemetry off, else empty: the
+        views flag their zeros as not recorded, not a measured idle
+        engine (JAX's convention)."""
+        return {} if self.obs.enabled else {"obs_disabled": True}
 
     def _kv_bytes_per_token(self) -> int:
         """Cache bytes one resident token takes: per layer, K and V of
@@ -798,6 +827,25 @@ class ContinuousBatcher(BlockTransfer):
         item = torch.empty((), dtype=c.kv_storage_dtype).element_size()
         scale = 4 if c.kv_quant else 0
         return c.num_layers * 2 * c.kv_heads * (c.head_dim * item + scale)
+
+    def _record_kv_backing_bytes(self) -> None:
+        """One-shot `cb_kv_cache_bytes_total{dtype}` (JAX :2861-2884): the
+        paged pools' backing bytes by storage dtype, the draft's mirrored
+        pools included, a quantized pool's f32 scale pools apart."""
+        if not self.paged:
+            return
+        tokens = self.pool_blocks * PAGE_ROWS
+        for c in (self.cfg, self._draft_cfg) if self._spec else (self.cfg,):
+            per_head = c.num_layers * 2 * c.kv_heads
+            item = torch.empty((), dtype=c.kv_storage_dtype).element_size()
+            self.obs.kv_cache_bytes.inc(
+                tokens * per_head * c.head_dim * item,
+                {"dtype": _dtype_name(c.kv_storage_dtype)},
+            )
+            if c.kv_quant:
+                self.obs.kv_cache_bytes.inc(
+                    tokens * per_head * 4, {"dtype": "scale-f32"}
+                )
 
     def _kv_backing_bytes(self) -> int:
         """Cache bytes backing the resident tokens: paged, the allocated
@@ -826,6 +874,7 @@ class ContinuousBatcher(BlockTransfer):
             "kv_blocks_parked", "kv_blocks_reserved",
         ))
         return {
+            **self._off(),
             "kv_hbm_bytes_per_resident_token": self.obs.kv_ratio.value(),
             "kv_bytes_dispatch_acc": self.obs.kv_bytes.value(),
             "kv_resident_dispatch_acc": int(self.obs.kv_resident.value()),
@@ -838,22 +887,20 @@ class ContinuousBatcher(BlockTransfer):
         }
 
     def quant_stats(self) -> dict:
-        """Quantization view (the JAX engine's `quant_stats()`, without
-        its obs planes): the configured dtypes, the per-token KV bytes,
-        the served weights' bytes, the paged pools' backing bytes by
-        storage dtype with the f32 scale pools apart, and the seconds the
-        build spent quantizing weights."""
+        """Quantization view (the JAX engine's `quant_stats()`): the
+        configured dtypes, the per-token KV bytes, the served weights'
+        bytes, and the registry's quant series: the paged pools' backing
+        bytes by storage dtype (the draft's included) with the f32 scale
+        pools apart, and the seconds the build spent quantizing weights."""
         c = self.cfg
-        name = str(c.kv_storage_dtype).removeprefix("torch.")
+        name = _dtype_name(c.kv_storage_dtype)
         kv_cache_bytes = {}
-        if self.paged:
-            tokens = self.pool_blocks * PAGE_ROWS
-            per_head = c.num_layers * 2 * c.kv_heads
-            item = torch.empty((), dtype=c.kv_storage_dtype).element_size()
-            kv_cache_bytes[name] = tokens * per_head * c.head_dim * item
-            if c.kv_quant:
-                kv_cache_bytes["scale-f32"] = tokens * per_head * 4
+        for label in (name, "scale-f32"):
+            value = self.obs.kv_cache_bytes.value({"dtype": label})
+            if value:
+                kv_cache_bytes[label] = int(value)
         return {
+            **self._off(),
             "enabled": bool(c.kv_quant or c.w_quant),
             "kv_dtype": c.kv_dtype,
             "w_dtype": c.w_dtype,
@@ -863,7 +910,7 @@ class ContinuousBatcher(BlockTransfer):
                 p.numel() * p.element_size() for p in self.model.parameters()
             ),
             "kv_cache_bytes": kv_cache_bytes,
-            "weight_quant_seconds": round(self._quant_seconds, 6),
+            "weight_quant_seconds": round(self.obs.quant_seconds.value(), 6),
         }
 
     def prefix_stats(self) -> dict:
@@ -874,6 +921,7 @@ class ContinuousBatcher(BlockTransfer):
         prompt_tokens = int(self.obs.prefix_prompt_tokens.value())
         idx = self.pool.prefix if self.paged else None
         return {
+            **self._off(),
             "enabled": idx is not None,
             "block_hits": hits,
             "block_misses": misses,
@@ -901,6 +949,7 @@ class ContinuousBatcher(BlockTransfer):
         accepted = int(self.obs.spec_accepted.value())
         slot_rounds = int(self.obs.spec_rounds.value())
         return {
+            **self._off(),
             "enabled": True,
             "k": self._k_now,
             "k_configured": self._spec_k,
@@ -917,7 +966,7 @@ class ContinuousBatcher(BlockTransfer):
                 round(accepted / slot_rounds, 4) if slot_rounds else None
             ),
             "emitted_per_round": (
-                round(self.obs.spec_emitted.value() / slot_rounds, 4)
+                round((accepted + slot_rounds) / slot_rounds, 4)
                 if slot_rounds else None
             ),
             "accepted_ema": (
@@ -936,6 +985,7 @@ class ContinuousBatcher(BlockTransfer):
             for r in ("slot_done", "unbacked", "horizon")
         }
         return {
+            **self._off(),
             "loop_steps": self.loop_steps,
             "enabled": self.loop_steps > 1,
             "dispatches": int(self.obs.loop_dispatches.value()),
@@ -950,24 +1000,26 @@ class ContinuousBatcher(BlockTransfer):
         admitted long requests, fanned lane rows and admission turns a
         long waited."""
         return {
+            **self._off(),
             "enabled": self.sp_prefill,
             "sp_min_tokens": self.sp_min_tokens,
             "sp_span": self.sp_span,
-            "active": int(self.obs.sp_active.value() or 0),
+            "active": sum(1 for p in self._prefilling if p.sp),
             "requests_total": int(self.obs.sp_requests.value()),
             "rows_total": int(self.obs.sp_rows.value()),
             "holds_total": int(self.obs.sp_holds.value()),
         }
 
     def lora_stats(self) -> dict:
-        """Multi-LoRA view (the JAX engine's `lora_stats()`, without its
-        obs planes): the set's geometry, the resident adapters, and the
-        per-adapter request, gather-dispatch and load-time counters."""
+        """Multi-LoRA view (the JAX engine's `lora_stats()`): the set's
+        geometry, the resident adapters, and the per-adapter request,
+        gather-dispatch and load-time counters."""
         if self._adapters is None:
             return {"enabled": False}
         aset = self._adapters
         adapters = aset.resident()
         return {
+            **self._off(),
             "enabled": True,
             "capacity": aset.capacity,
             "rank": aset.rank,
@@ -1140,6 +1192,10 @@ class ContinuousBatcher(BlockTransfer):
         self.obs.lora_resident.set(len(self._adapters.resident()))
         # The fingerprint pins the adapter digests: recomputed on demand.
         self._fingerprint = None
+        self.obs.trace.event(
+            "lora_load", time.monotonic(), adapter=adapter,
+            adapter_name=name,
+        )
 
     def unload_adapter(self, adapter: int) -> None:
         """Evict adapter `adapter` (back to the all-zero identity; its id
@@ -1150,6 +1206,9 @@ class ContinuousBatcher(BlockTransfer):
         self.pool.drop_tagged(adapter_tag(adapter))
         self.obs.lora_resident.set(len(self._adapters.resident()))
         self._fingerprint = None
+        self.obs.trace.event(
+            "lora_unload", time.monotonic(), adapter=adapter,
+        )
 
     def _require_adapter_idle(self, adapter: int) -> None:
         if self._adapters is None:
@@ -1203,6 +1262,8 @@ class ContinuousBatcher(BlockTransfer):
             self._slot_req[s] = req
             self._slot_new[s] = True
             self._budget[s] = req.max_new_tokens
+            self.obs.queue_depth.set(len(self._pending))
+            self.obs.trace.admitted(req.rid, time.monotonic(), s, 0)
 
     def _admit_paged(self) -> None:
         """Assign pending requests to free slots and pool blocks and
@@ -1280,8 +1341,13 @@ class ContinuousBatcher(BlockTransfer):
             busy.add(s)
             if entry.sp:
                 self.obs.sp_requests.inc()
+            self.obs.queue_depth.set(len(self._pending))
+            self.obs.lane_active.set(len(self._prefilling))
             self.obs.sp_active.set(sum(1 for p in self._prefilling if p.sp))
             self.pool.set_gauges()
+            self.obs.trace.admitted(
+                req.rid, time.monotonic(), s, len(blocks), cached=cached
+            )
         if held_long:
             # Once per admission turn in which a long waited for the lane.
             self.obs.sp_holds.inc()
@@ -1296,66 +1362,99 @@ class ContinuousBatcher(BlockTransfer):
     def _dispatch(self):
         """Paged: back the chunk's decode rows, snapshot the table, run
         the decode chunk and the prefill lane, flip finished prefills
-        live. Dense: run the decode chunk. Returns the in-flight handle."""
-        table, lane, finished = None, None, []
+        live. Dense: run the decode chunk. Returns the in-flight handle:
+        (host tokens, ready event, snapshot, fresh, dispatch time, the
+        trace context)."""
+        t_host0 = time.monotonic()
+        table, lane, finished, lane_rows = None, None, [], 0
         if self.paged:
-            table, lane, finished = self._paged_prologue(
+            t0, table, lane, finished, lane_rows = self._paged_prologue(
                 self.chunk_steps, advance=True
             )
         else:
             self._record_kv_snapshot()
+            self.obs.profile.on_dispatch()
+            t0 = time.monotonic()
         emitted = decode_chunk(
             self.model, self._state, table, self.chunk_steps, self._lora
         )
         if lane is not None:
             run_lane(self.model, self._state, lane, self._lora)
         host, ready = self._to_host(emitted)
-        snapshot, fresh = self._epilogue(finished, self.chunk_steps)
-        return host, ready, snapshot, fresh
+        snapshot, fresh = self._epilogue(finished, t0, self.chunk_steps)
+        ctx = self._trace_ctx(
+            snapshot, lane_rows, False, self.chunk_steps, t_host0
+        )
+        return host, ready, snapshot, fresh, t0, ctx
 
     def _paged_prologue(self, steps: int, advance: bool):
         """Back the rows this dispatch writes before the table snapshot
-        names them, record the KV gauges, upload the table and assemble
-        the prefill lane. Returns (table, lane or None, finished)."""
+        names them, record the KV gauges, tick the profile hook, upload
+        the table and assemble the prefill lane. Returns (dispatch time,
+        table, lane or None, finished, lane rows in use)."""
         self._ensure_decode_blocks(steps, advance=advance)
         self._record_kv_snapshot()
+        self.obs.profile.on_dispatch()
         if self._adapters is not None:
             # One per armed dispatch: every program gathers the stacks
             # once per projection, whatever the batch's adapter mix.
             self.obs.lora_gather.inc()
+        t0 = time.monotonic()
         # int32, the kernels' index type: no per-layer conversion.
         table = to_device(self.pool.table.astype(np.int32), self.device)
         if self._prefilling:
-            lane, finished = self._prepare_lane()
-            return table, lane, finished
-        return table, None, []
+            lane, finished, lane_rows = self._prepare_lane(t0)
+            return t0, table, lane, finished, lane_rows
+        return t0, table, None, [], 0
 
-    def _epilogue(self, finished: list[_Prefill], steps: int):
+    def _epilogue(self, finished: list[_Prefill], t0: float, steps: int):
         """Snapshot the slots before finished prefills flip live (their
         first token rides the next dispatch's input column), then count
         the dispatch. Returns (snapshot, fresh)."""
         snapshot = list(self._slot_req)
         fresh = list(self._slot_new)
         self._slot_new = [False] * self.slots
-        self._flip_finished(finished)
-        self._mark_dispatch(sum(1 for r in snapshot if r is not None), steps)
+        if self.paged:
+            self._flip_finished(finished)
+        self._mark_dispatch(
+            sum(1 for r in snapshot if r is not None), t0, steps
+        )
         return snapshot, fresh
 
-    def _mark_dispatch(self, busy: int, steps: int) -> None:
+    def _mark_dispatch(self, busy: int, t0: float, steps: int) -> None:
         """`steps` is the dispatch's per-slot step window: chunk_steps, k+1
         for a round, the steps a fold ran."""
-        self._last_dispatch_mono = time.monotonic()
-        self.obs.dispatches.inc()
-        self.obs.busy_steps.inc(busy * steps)
-        self.obs.total_steps.inc(self.slots * steps)
+        self._last_dispatch_mono = t0
+        obs = self.obs
+        obs.dispatches.inc()
+        obs.last_dispatch.set(time.time())
+        obs.slots_active.set(busy)
+        obs.busy_steps.inc(busy * steps)
+        obs.total_steps.inc(self.slots * steps)
+
+    @staticmethod
+    def _trace_ctx(snapshot, lane_rows: int, spec: bool, steps: int,
+                   t_host0: float) -> dict:
+        """What the dispatch's trace event needs at its sync: its
+        composition class, step window and host assembly seconds (from
+        the start of assembly to the return of its launches)."""
+        busy = sum(1 for r in snapshot if r is not None)
+        return {
+            "kind": classify_dispatch(busy, lane_rows, spec),
+            "steps": steps,
+            "host_s": time.monotonic() - t_host0,
+        }
 
     def _dispatch_spec(self):
         """One speculative round: back every live slot's k+1 verify rows
         (the head mirror is exact here: rounds are synchronous), then the
         round, and the prefill lane with its draft mirror when admissions
         ride along."""
+        t_host0 = time.monotonic()
         k = self._k_now
-        table, lane, finished = self._paged_prologue(k + 1, advance=False)
+        t0, table, lane, finished, lane_rows = self._paged_prologue(
+            k + 1, advance=False
+        )
         emitted, n_emit = spec_round(
             self.model, self._draft, self._state, self._d_cache, table, k,
             self._lora,
@@ -1364,8 +1463,9 @@ class ContinuousBatcher(BlockTransfer):
             run_lane(self.model, self._state, lane, self._lora)
             mirror_lane(self._draft, self._d_cache, lane)
         out = torch.cat([emitted, n_emit[:, None]], dim=1)
-        snapshot, fresh = self._epilogue(finished, k + 1)
-        return out, snapshot, fresh
+        snapshot, fresh = self._epilogue(finished, t0, k + 1)
+        ctx = self._trace_ctx(snapshot, lane_rows, True, k + 1, t_host0)
+        return out, snapshot, fresh, t0, ctx
 
     def _to_host(self, t: torch.Tensor):
         """Start the device->host copy of a chunk's tokens; the event
@@ -1378,7 +1478,7 @@ class ContinuousBatcher(BlockTransfer):
         ready.record()
         return host, ready
 
-    def _prepare_lane(self):
+    def _prepare_lane(self, t0: float):
         """Host-side lane assembly: [prefill_lanes, prefill_chunk]
         token and table arrays, each admitted request writing its next
         chunk (the final chunk aligned to the prompt's end, clamped to
@@ -1404,7 +1504,8 @@ class ContinuousBatcher(BlockTransfer):
         scratch block holds what JAX's does (the last of its writers in
         row order, as XLA's scatter writes them). On an armed engine every
         chunk of a prompt runs under its request's adapter (`adapter`,
-        pad rows 0)."""
+        pad rows 0). Returns (lane, finished, rows in use); `t0` stamps
+        each entry's prefill_chunk trace event."""
         W, P = self.prefill_chunk, self.prefill_lanes
         spans = [1] * len(self._prefilling)
         spare = P - len(self._prefilling)
@@ -1416,7 +1517,12 @@ class ContinuousBatcher(BlockTransfer):
             if extra > 0:
                 spans[i] += extra
                 spare -= extra
-        rows = min(1 << (sum(spans) - 1).bit_length(), P)
+        n_rows = sum(spans)
+        # Lane utilization: rows carrying a real admission against the
+        # configured lane width, summed over lane dispatches.
+        self.obs.lane_rows.inc(n_rows)
+        self.obs.lane_capacity.inc(P)
+        rows = min(1 << (n_rows - 1).bit_length(), P)
         tok = np.zeros((P, W), np.int64)
         start = np.zeros(P, np.int32)
         start[rows:] = self._nlog * PAGE_ROWS
@@ -1460,6 +1566,7 @@ class ContinuousBatcher(BlockTransfer):
                 and entry.pending[0].depth * PAGE_ROWS <= entry.consumed
             ):
                 self.pool.prefix.mark_ready(entry.pending.pop(0))
+            self.obs.trace.prefill_chunk(req.rid, t0, entry.consumed, n)
         dev = self.device
         lane = {
             name: to_device(a, dev) for name, a in (
@@ -1471,7 +1578,7 @@ class ContinuousBatcher(BlockTransfer):
             )
         }
         lane["rows"] = rows
-        return lane, finished
+        return lane, finished, n_rows
 
     def _flip_finished(self, finished: list[_Prefill]) -> None:
         """Requests whose final prefill chunk just dispatched go live:
@@ -1486,6 +1593,7 @@ class ContinuousBatcher(BlockTransfer):
                 s, entry.blocks, entry.nodes, entry.resv,
                 len(entry.req.prompt),
             )
+        self.obs.lane_active.set(len(self._prefilling))
         self.obs.sp_active.set(sum(1 for p in self._prefilling if p.sp))
 
     def _ensure_decode_blocks(self, window: int, *, advance: bool) -> None:
@@ -1547,51 +1655,77 @@ class ContinuousBatcher(BlockTransfer):
 
     # -- sync and commit -------------------------------------------------------
 
-    def _process(self, host, ready, snapshot, fresh) -> None:
+    def _process(self, host, ready, snapshot, fresh, t_dispatch, ctx) -> None:
+        # The blocked device time: the wait for the chunk's tokens to
+        # land on the host (the residual the pipelining did not hide).
+        t_sync0 = time.monotonic()
         if ready is not None:
             ready.synchronize()
         tokens = host.numpy()
+        # One clock read serves every record of the chunk: the trace, the
+        # histograms and the done records agree exactly.
         now = time.monotonic()
+        self.obs.dispatch_latency.observe(now - t_dispatch)
+        n_emitted = 0
         for s, req in enumerate(snapshot):
             if req is None or req.done:
                 continue
             emit = tokens[s] if fresh[s] else tokens[s, 1:]
-            self._commit_tokens(s, req, emit, now)
+            n_emitted += self._commit_tokens(s, req, emit, now)
+        if n_emitted:
+            self.obs.tokens.inc(n_emitted)
+        self._finish_sync(now, ctx, now - t_sync0)
 
-    def _process_spec(self, out, snapshot, fresh) -> None:
+    def _finish_sync(self, now: float, ctx: dict, device_s: float) -> None:
+        """The dispatch's trace event, at its sync: composition, step
+        window, host assembly and blocked device seconds."""
+        self.obs.trace.dispatch(
+            now, ctx["kind"], ctx["steps"], ctx["host_s"], device_s
+        )
+
+    def _process_spec(self, out, snapshot, fresh, t_dispatch, ctx) -> None:
         """Sync one round and commit it: per live slot, advance the head
         mirror by the committed count, commit `[input?] + chosen[:n]`,
         return the verify-window blocks the rejections left unused; then
         the counters and the acceptance controller."""
+        # Rounds are synchronous: the blocked fetch is the whole round.
+        t_sync0 = time.monotonic()
         out = out.cpu().numpy()  # the round's one sync
         tokens, counts = out[:, :-1], out[:, -1]
         now = time.monotonic()
+        self.obs.dispatch_latency.observe(now - t_dispatch)
         live = np.array([r is not None and not r.done for r in snapshot], bool)
+        n_emitted = 0
         for s in np.flatnonzero(live):
             c = int(counts[s])
             self.pool.slot_pos[s] += c
             emit = tokens[s, :1 + c] if fresh[s] else tokens[s, 1:1 + c]
-            self._commit_tokens(s, snapshot[s], emit, now)
+            n_emitted += self._commit_tokens(s, snapshot[s], emit, now)
             self._rollback_spec_blocks(s)
-        self._account_round(counts, live, self._k_now)
+        if n_emitted:
+            self.obs.tokens.inc(n_emitted)
+        self._account_round(counts, live, self._k_now, now)
         self.pool.set_gauges()
+        self._finish_sync(now, ctx, now - t_sync0)
 
-    def _account_round(self, counts, live, k: int) -> None:
-        """The counters and the controller for one speculative round of k
-        drafts: counts [slots] tokens committed per slot, live [slots]
-        the slots that were live in it."""
+    def _account_round(self, counts, live, k: int, now: float) -> None:
+        """The counters, the trace markers and the controller for one
+        speculative round of k drafts: counts [slots] tokens committed per
+        slot, live [slots] the slots that were live in it."""
         obs = self.obs
         obs.spec_verify.inc()
         obs.spec_draft.inc(k + 1)
         n = int(live.sum())
         if not n:
             return
-        emitted = int(counts[live].sum())
-        obs.spec_emitted.inc(emitted)
+        for c in counts[live]:
+            obs.spec_emitted.observe(int(c))
+        accepted = int(counts[live].sum()) - n
         obs.spec_rounds.inc(n)
         obs.spec_proposed.inc(k * n)
-        obs.spec_accepted.inc(emitted - n)
-        self._spec_controller((emitted - n) / n)
+        obs.spec_accepted.inc(accepted)
+        obs.trace.spec_round(now, k, n, accepted)
+        self._spec_controller(accepted / n)
 
     def _step_loop(self) -> None:
         """One device-resident fold, dispatch and sync (synchronous: the
@@ -1601,12 +1735,14 @@ class ContinuousBatcher(BlockTransfer):
         the exit inputs beside the table, run the fold, and replay what
         it surfaced through `_commit_tokens`, the controller and the
         counters as if each chunk or round had synced on its own."""
+        t_host0 = time.monotonic()
         pool = self.pool
         spec = self._spec_on
         k = self._k_now
         kstep = (k + 1) if spec else self.chunk_steps
         self._ensure_decode_blocks(self.loop_steps * kstep, advance=False)
         self._record_kv_snapshot()
+        self.obs.profile.on_dispatch()
         if self._adapters is not None:
             self.obs.lora_gather.inc()
         live_mask = np.array(
@@ -1628,26 +1764,35 @@ class ContinuousBatcher(BlockTransfer):
         fresh = list(self._slot_new)
         self._slot_new = [False] * self.slots
         busy = int(live_mask.sum())
+        t0 = time.monotonic()
         tokens, t_run, code, counts = self._loop.run(
             pool.table, live_mask, eos, owed, backed, spec_k=k if spec else 0
         )
         now = time.monotonic()
         steps = t_run * kstep
+        # Host seconds: assembly to the fold's launch; device seconds: the
+        # time blocked at its one sync (`DecodeLoop.sync_t0` / `sync_s`).
+        ctx = self._trace_ctx(snapshot, 0, spec, steps, t_host0)
+        ctx["host_s"] = self._loop.sync_t0 - t_host0
         obs = self.obs
+        obs.dispatch_latency.observe(now - t0)
+        n_emitted = 0
         for s, req in enumerate(snapshot):
             if req is None or req.done:
                 continue
             adv = int(counts[:t_run, s].sum()) if spec else steps
             pool.slot_pos[s] += adv
             emit = tokens[s, :1 + adv] if fresh[s] else tokens[s, 1:1 + adv]
-            self._commit_tokens(s, req, emit, now)
+            n_emitted += self._commit_tokens(s, req, emit, now)
             if spec:
                 self._rollback_spec_blocks(s)
+        if n_emitted:
+            obs.tokens.inc(n_emitted)
         if spec:
             for r in range(t_run):
-                self._account_round(counts[r], live_mask, k)
+                self._account_round(counts[r], live_mask, k, now)
             pool.set_gauges()
-        self._mark_dispatch(busy, steps)
+        self._mark_dispatch(busy, t0, steps)
         obs.loop_dispatches.inc()
         obs.loop_chunks.inc(t_run)
         obs.loop_exits.inc(labels={"reason": LOOP_EXITS[code]})
@@ -1656,6 +1801,7 @@ class ContinuousBatcher(BlockTransfer):
         obs.loop_steps_per_sync.set(
             round(self._loop_steps_acc / self._loop_sync_n, 2)
         )
+        self._finish_sync(now, ctx, self._loop.sync_s)
 
     def _spec_controller(self, round_accepted: float) -> None:
         """Acceptance-adaptive drafting: an EMA of the accepted drafts per
@@ -1678,17 +1824,25 @@ class ContinuousBatcher(BlockTransfer):
             self._spec_rounds_seen = 0
             self._spec_ema = None
             self.obs.spec_k_gauge.set(self._k_now)
+            self.obs.trace.event(
+                "spec_k_drop", time.monotonic(), k=self._k_now
+            )
         else:
             self._spec_on = False
             self.obs.spec_disabled.set(1)
+            self.obs.trace.event("spec_disabled", time.monotonic())
 
     def _commit_tokens(self, s: int, req: _Request, emit, now) -> int:
         """Feed one slot's newly visible tokens into its request: TTFT,
-        EOS and budget termination, slot release."""
+        EOS and budget termination, slot release. Returns the number
+        committed."""
+        obs = self.obs
         n = 0
         for t in emit:
             if not req.tokens:
                 req.first_token_at = now
+                obs.ttft.observe(now - req.submitted_at)
+                obs.trace.first_token(req.rid, now)
             req.tokens.append(int(t))
             n += 1
             self._budget[s] -= 1
@@ -1703,6 +1857,15 @@ class ContinuousBatcher(BlockTransfer):
                 else:
                     reason = "budget"
                 req.truncated = reason == "pool_overflow"
+                obs.completed.inc(labels={"reason": reason})
+                obs.wall.observe(now - req.submitted_at)
+                if len(req.tokens) > 1 and now > req.first_token_at:
+                    # A request done within its first sync has no
+                    # host-visible decode pace.
+                    obs.tpot.observe(
+                        (now - req.first_token_at) / (len(req.tokens) - 1)
+                    )
+                obs.trace.done(req.rid, now, reason, len(req.tokens))
                 if self._capture is not None:
                     # The one completion seam the chunk, the round and the
                     # fold share: one done record per request.

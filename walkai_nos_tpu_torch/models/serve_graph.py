@@ -57,6 +57,7 @@ launches the profiler sees.
 from __future__ import annotations
 
 import ctypes
+import time
 import weakref
 
 import numpy as np
@@ -119,6 +120,9 @@ class DecodeLoop:
         self._execs: list = []
         weakref.finalize(self, _destroy, self._execs)
         self.folds = self.captures = 0
+        # The last fold's sync: when the host began to wait, and for how
+        # long (the engine's trace reads both).
+        self.sync_t0, self.sync_s = 0.0, 0.0
 
     # -- the body ----------------------------------------------------------
 
@@ -177,7 +181,8 @@ class DecodeLoop:
         """One fold: plain chunks (`spec_k` 0) or rounds of k = spec_k.
         The host arrays are [slots, nlog] and [slots] ints. Returns
         (tokens [slots, 1 + loop_steps * W] int64, chunks or rounds run,
-        exit code, rc [loop_steps, slots] or None)."""
+        exit code, rc [loop_steps, slots] or None); `sync_t0` and
+        `sync_s` time the wait at its sync."""
         packed = np.concatenate([
             np.asarray(table, np.int32).reshape(-1),
             *(np.asarray(a, np.int32) for a in (live, eos, owed, backed)),
@@ -192,7 +197,9 @@ class DecodeLoop:
             da._check(_fold_fn("graph_fold_launch")(exec_, stream.cuda_stream),
                       "graph_fold_launch")
             self._out_host.copy_(self._out, non_blocking=True)
+            self.sync_t0 = time.monotonic()
             stream.synchronize()
+            self.sync_s = time.monotonic() - self.sync_t0
             out = self._out_host
         else:
             self._in.copy_(torch.from_numpy(packed))
@@ -202,6 +209,8 @@ class DecodeLoop:
                     break
                 body(i, spec_k)
             out = self._out
+            # The CPU computes inline: nothing to wait for.
+            self.sync_t0, self.sync_s = time.monotonic(), 0.0
         n = self.slots * (self._width + 1)
         buf = out[:n].view(self.slots, self._width + 1).numpy()
         t_run, code = int(out[-2]), int(out[-1])

@@ -239,6 +239,9 @@ class BlockTransfer:
         nbytes = _tile_bytes(payload)
         if nbytes:
             self.obs.xfer_bytes.inc(nbytes, {"dir": "out"})
+        self.obs.trace.event(
+            "export_blocks", time.monotonic(), blocks=len(records)
+        )
         return payload
 
     def import_blocks(self, payload: dict) -> dict:
@@ -311,6 +314,9 @@ class BlockTransfer:
                 self.obs.xfer_bytes.inc(nbytes, {"dir": "in"})
         self.obs.xfer_imported.inc(len(accepted))
         self._count_rejected(rejected)
+        self.obs.trace.event(
+            "import_blocks", time.monotonic(), blocks=len(accepted)
+        )
         return {"imported": len(accepted), "rejected": rejected}
 
     def _require_prefix(self, what: str):
@@ -387,10 +393,12 @@ class BlockTransfer:
                 req = self._pending.popleft()
                 resubmit.append(self._resubmit_state(req))
                 del self._requests[req.rid]
+            self.obs.queue_depth.set(0)
             for entry in list(self._prefilling):
                 self._drop_prefill(entry)
                 resubmit.append(self._resubmit_state(entry.req))
                 del self._requests[entry.req.rid]
+            self.obs.lane_active.set(0)
         st = self._state
         seeds = st.seeds.cpu().numpy()
         counters = st.counters.cpu().numpy()
@@ -443,6 +451,10 @@ class BlockTransfer:
         n = len(resubmit) + len(migrate)
         if n:
             self.obs.xfer_migrated.inc(n, {"dir": "out"})
+        self.obs.trace.event(
+            "export_resident", time.monotonic(),
+            requests=n, migrated=len(migrate),
+        )
         return payload
 
     def import_resident(self, payload: dict) -> list[dict]:
@@ -576,6 +588,10 @@ class BlockTransfer:
                         **({"adapter": aid}
                            if self._adapters is not None else {}),
                     )
+                self.obs.trace.submit(
+                    rid, req.submitted_at, len(prompt),
+                    int(m["max_new_tokens"]), trace_id=req.trace_id,
+                )
                 self._slot_req[s] = req
                 self._slot_new[s] = False
                 self._budget[s] = int(m["remaining"])
@@ -603,6 +619,10 @@ class BlockTransfer:
             pool.set_gauges()
         if out:
             self.obs.xfer_migrated.inc(len(out), {"dir": "in"})
+        self.obs.trace.event(
+            "import_resident", time.monotonic(),
+            requests=len(out), migrated=len(slots),
+        )
         return out
 
     def _write_slot_state(self, slots: list[int], values: dict) -> None:

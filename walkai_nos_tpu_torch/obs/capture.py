@@ -35,7 +35,7 @@ Rotation keeps the recorder bounded: when the current file passes
 `max_bytes` it closes and a fresh file (with its own header) opens;
 files beyond `max_files` are pruned oldest first, their records counted
 as dropped. Drops and write failures are counted (`stats()`, and the
-engine's `capture_*` counters in `models/serve_stats.py`).
+engine's `cb_capture_*` series in its `obs/serving.ServingObs`).
 
 Writer: `ContinuousBatcher(capture=...)` records at its submit and
 commit seams. Readers: `sim/replay.py` (`load_capture` /
@@ -242,9 +242,8 @@ class CaptureLog:
     def attach(self, fingerprint: dict, *, obs=None) -> None:
         """Arm the log: pin the writer's config fingerprint (written
         as the header of every file) and start the arrival clock.
-        `obs` is the engine's counters (`models/serve_stats.
-        EngineStats`) — when given, its `capture_*` counters mirror the
-        internal tallies."""
+        `obs` is the engine's `obs/serving.ServingObs` — when given, its
+        `capture_*` counters mirror the internal tallies."""
         self.fingerprint = fingerprint
         self._obs = obs
         self._origin = time.monotonic()
