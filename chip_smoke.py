@@ -114,6 +114,29 @@ the CUDA toolkit (`nvcc`). It:
    one completed window, no error, a trace file whose K1 and K2 kernel
    events equal the launches their wrappers counted between the hook's
    start and stop (layers x chunk steps x the dispatches in between);
+   the same leg checks the SLO and attribution layers of the serving
+   engine (built with a TTFT objective of 120 s and a TPOT objective of
+   0.1 ms, over a window longer than the leg): the windows count every
+   request and dispatch the registry counted, the TTFT objective is met
+   and the TPOT one breached with a burn rate above 1, `slo_ok` is
+   False, the saturation lies in [0, 1], the dispatches by composition
+   class add up to the dispatches, and the cost model's bytes per step
+   less the weights' bytes are a whole number of resident tokens' KV
+   bytes, at most slots x cache_len of them; it prints the roofline
+   fraction and host-overhead share (the loop leg prints its own);
+4g. the fleet leg (`fleet_phase`, at WINDOW_LAYERS layers on one model
+   every engine shares): two `EngineReplica`s (paged, 4 slots,
+   cache_len 1024) behind an affinity `FleetRouter(seed=0)` with one
+   spare in a `StaticSliceProvider`; 16 greedy requests x 16 new tokens
+   in waves, on 4 templates (a shared 128-token block plus an 8-64-token
+   suffix, Zipf 1.1 from --seed); a TTFT objective the waves breach makes
+   the reconciler scale up once, and a migrating drain of a replica
+   with resident requests scales the fleet down. Every request's tokens
+   equal a solo engine's, none is dropped, the affinity fleet's prefix
+   hit rate beats a round-robin rerun's, the federated exposition
+   carries each replica's `cb_*` series under `replica`, the fleet trace
+   merges, K2 / K1 launches are counted per replica, and K2 / K1 are
+   held to their plain versions on one decode call of a replica;
 5. generates 128 tokens for 8 prompts through `make_generate_fn` at
    TinyLlama-1.1B width (dense cache, chunks of 16 steps): 22 K7
    launches per decode step, two runs give the same tokens, tokens/s,
@@ -236,6 +259,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import contextlib
+import gc
 import itertools
 import json
 import math
@@ -1030,7 +1054,8 @@ def serving_phase(ContinuousBatcher, LMConfig, DecoderLM, da, seed: int) -> dict
     init_s = time.monotonic() - t0
     prompts = _serving_prompts(cfg, seed)
     new = 32
-    engine = ContinuousBatcher(cfg, model, **LM_ENGINE_KW)
+    engine = ContinuousBatcher(cfg, model, slo_window_s=OBS_SLO_WINDOW_S,
+                               slo_objectives=OBS_SLO_OBJECTIVES, **LM_ENGINE_KW)
     engine.warm()
     obs0 = _obs_snapshot(engine)
     run = _serve_timed(engine, prompts, new, da)
@@ -1087,6 +1112,11 @@ PROM_SAMPLE = re.compile(
 )
 OBS_PROFILE_DISPATCHES = 4
 OBS_WINDOW_NEW = 128
+# The serving engine's SLO layer: a TTFT objective every request meets and
+# a TPOT objective (0.1 ms) every paced request breaches, over a window
+# longer than the leg, so the windows hold every sample the registry has.
+OBS_SLO_OBJECTIVES = {"ttft_p99_s": 120.0, "tpot_p99_s": 1e-4}
+OBS_SLO_WINDOW_S = 3600.0
 
 
 def _obs_snapshot(engine) -> dict:
@@ -1100,6 +1130,54 @@ def _obs_snapshot(engine) -> dict:
         "dispatch_latency": o.dispatch_latency.count(),
         "t": time.monotonic(),
     }
+
+
+def _slo_attrib_checks(engine, run: dict, obs0: dict) -> dict:
+    """Leg 4f's checks of the SLO and attribution layers after the
+    serving run: the windows (longer than the leg) count every sample the
+    registry holds, the warm-up's and the run's; the TTFT objective met,
+    the TPOT one breached; the dispatches by composition class add up;
+    the cost model's last bytes per step are the weights' bytes plus a
+    whole number of resident tokens' KV bytes, at most slots x cache_len."""
+    obs, n = engine.obs, len(run["rids"])
+    slo, at = engine.slo_stats(), engine.attrib_stats()
+    counts = {k: w["count"] for k, w in slo["windows"].items()}
+    want = {"ttft": obs.ttft.count(), "tpot": obs.tpot.count(),
+            "dispatch": obs.dispatch_latency.count()}
+    if (counts != want or counts["ttft"] != obs0["ttft"] + n
+            or counts["dispatch"] != obs0["dispatch_latency"] + run["dispatches"]):
+        _fail(f"slo leg: window counts {counts}, the registry {want}, the run "
+              f"{n} requests and {run['dispatches']} dispatches after {obs0}")
+    if (slo["slo_ok"] != {"ttft_p99_s": True, "tpot_p99_s": False}
+            or not slo["burn_rate"]["tpot_p99_s"] > 1.0
+            or slo["burn_rate"]["ttft_p99_s"] != 0.0 or engine.slo_ok is not False):
+        _fail(f"slo leg: compliance {slo['slo_ok']}, burn {slo['burn_rate']}, "
+              f"slo_ok {engine.slo_ok}")
+    sat = engine.saturation
+    if sat is None or not 0.0 <= sat <= 1.0:
+        _fail(f"slo leg: saturation {sat}, {slo['saturation']}")
+    kinds = {k: v["dispatches"] for k, v in at["kinds"].items()}
+    if sum(kinds.values()) != obs.dispatches.value():
+        _fail(f"attribution: kinds {kinds} for {obs.dispatches.value()} dispatches")
+    per_tok = engine._kv_bytes_per_token()
+    resident = (at["hbm_bytes_per_step"] - engine._param_bytes) / per_tok
+    if (resident != int(resident)
+            or not 0 <= resident <= engine.slots * engine.cache_len):
+        _fail(f"attribution: {at['hbm_bytes_per_step']} bytes a step less "
+              f"{engine._param_bytes} of weights is {resident} tokens of {per_tok} B")
+    frac, host = at["roofline_fraction"], at["host_overhead_frac"]
+    if frac is None or not 0.0 < frac <= 1.0 or not 0.0 <= host <= 1.0:
+        _fail(f"attribution: roofline fraction {frac}, host overhead {host}")
+    return {"window_counts": counts, "slo_ok": slo["slo_ok"],
+            "burn_rate": slo["burn_rate"], "saturation": sat,
+            "components": slo["saturation"]["components"],
+            "windows": slo["windows"], "kinds": kinds,
+            "param_bytes": engine._param_bytes, "kv_bytes_per_token": per_tok,
+            "hbm_bytes_per_step": at["hbm_bytes_per_step"],
+            "resident_tokens_last_dispatch": int(resident),
+            "roofline_fraction": frac, "host_overhead_frac": host,
+            "device_step_ms": at["device_step_ms"],
+            "window_dispatches": at["window_dispatches"]}
 
 
 def _obs_on_checks(engine, run: dict, obs0: dict) -> dict:
@@ -1165,6 +1243,7 @@ def obs_phase(ContinuousBatcher, da, model, cfg, prompts, tokens, on) -> dict:
     engine, run_on, obs0 = on
     new = len(tokens[0])
     checks = _obs_on_checks(engine, run_on, obs0)
+    slo_attrib = _slo_attrib_checks(engine, run_on, obs0)
     off = ContinuousBatcher(cfg, model, obs=False, **LM_ENGINE_KW)
     off.warm()
     runs = {"on": [run_on], "off": []}
@@ -1193,8 +1272,8 @@ def obs_phase(ContinuousBatcher, da, model, cfg, prompts, tokens, on) -> dict:
     launches = {k: sum(r["launches"][k] for r in runs["on"][1:] + runs["off"])
                 for k in ("paged_attention", "qkv_rope")}
     return {
-        "checks": checks, "new_tokens_each": new, "requests": len(tokens),
-        "order": "on off on off",
+        "checks": checks, "slo_attrib": slo_attrib, "new_tokens_each": new,
+        "requests": len(tokens), "order": "on off on off",
         "step_ms": {"on": on_ms, "off": off_ms},
         "wall_s": {"on": [r["wall_s"] for r in runs["on"]],
                    "off": [r["wall_s"] for r in runs["off"]]},
@@ -1288,6 +1367,10 @@ def window_obs_profile(seed: int) -> dict:
 # budget lets folds do most of the decode steps (admission stays eager).
 LOOP_STEPS = 4
 LOOP_NEW = 256
+# The loop window's new tokens a request: enough folds that most only
+# replay their graph, half the leg's 256, to keep the profiled trace (and
+# the child's reading of it) short.
+LOOP_WINDOW_NEW = 128
 SPEC_K = 4
 SPEC_NEW = 32
 # The depth of the LM serving, loop, spec, int8 serving, generate and
@@ -1346,6 +1429,7 @@ def loop_serving_phase(ContinuousBatcher, da, model, cfg, prompts) -> dict:
         engine.warm()
         runs[loop] = _serve_legged(engine, prompts, LOOP_NEW, da)
         chunk_steps, loop_stats = engine.chunk_steps, engine.loop_stats()
+        attrib = engine.attrib_stats()
         del engine
     tokens = {loop: [run["records"][r]["tokens"] for r in run["rids"]]
               for loop, run in runs.items()}
@@ -1362,6 +1446,7 @@ def loop_serving_phase(ContinuousBatcher, da, model, cfg, prompts) -> dict:
     return {"loop_steps": LOOP_STEPS, "chunk_steps": chunk_steps,
             "new_tokens_each": LOOP_NEW, **_public(run),
             "folded_step_share": share, "loop_stats": loop_stats,
+            "attrib": attrib,
             "loop_off": {k: off[k] for k in ("wall_s", "decode_steps", "step_ms",
                                              "decode_tokens_per_s")},
             "tokens_equal_loop_off": True}
@@ -1981,7 +2066,7 @@ def _in_ranges(events, ranges) -> list:
 
 
 def window_loop_serving(seed: int) -> dict:
-    """4 of the serving prompts x LOOP_NEW new tokens through a warmed
+    """4 of the serving prompts x LOOP_WINDOW_NEW new tokens through a warmed
     paged engine with `loop_steps` 4 at TinyLlama-1.1B widths and
     WINDOW_LAYERS layers, CPU and CUDA activity, each
     `_step_loop` under a profiler range "fold". The profiler must see as
@@ -2004,7 +2089,7 @@ def window_loop_serving(seed: int) -> dict:
     engine = ContinuousBatcher(cfg, DecoderLM(cfg, device="cuda", seed=seed),
                                loop_steps=LOOP_STEPS, **LM_ENGINE_KW)
     engine.warm()
-    rids = [engine.submit(p, max_new_tokens=LOOP_NEW)
+    rids = [engine.submit(p, max_new_tokens=LOOP_WINDOW_NEW)
             for p in _serving_prompts(cfg, seed)[:4]]
     step_loop = engine._step_loop
     captured = []  # per fold: whether it captured its graph (not replayed)
@@ -2025,7 +2110,7 @@ def window_loop_serving(seed: int) -> dict:
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     engine._step_loop = step_loop
-    if any(len(out[r]) != LOOP_NEW for r in rids):
+    if any(len(out[r]) != LOOP_WINDOW_NEW for r in rids):
         _fail("profiled window: a request came back short")
     summary = _profile_summary(
         prof, wall, "loop_profile.txt", da.LAUNCHES,
@@ -2852,6 +2937,227 @@ def capture_replay_phase(ContinuousBatcher, lm_mod, replay_mod, capture_mod, da,
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     return out
+
+
+# The fleet leg (4g): two replicas and a spare of FLEET_KW engines on one
+# model (prefill_lanes 1, as the JAX traffic harness's engines: a request
+# admitted behind a same-template writer finds its blocks ready, so the
+# hit rate measures routing, not admission collisions); 16 requests in
+# waves of FLEET_WAVES; a TTFT objective the waves' queueing breaches, so
+# the reconciler (ticks: one per router step) scales up once.
+FLEET_KW = dict(slots=4, cache_len=1024, prefill_chunk=64, prefill_lanes=1)
+FLEET_NEW = 16
+FLEET_WAVES = (8, 6, 2)
+FLEET_TEMPLATES = 4
+FLEET_SLO = {"ttft_p99_s": 0.01}
+FLEET_POLICY = dict(min_replicas=1, max_replicas=3, breach_ticks=2,
+                    idle_ticks=10_000, cooldown_ticks=4)
+
+
+def _fleet_prompts(cfg, seed: int) -> list:
+    """FLEET_TEMPLATES shared 128-token blocks, each request one of them
+    (Zipf 1.1) plus an 8-64-token suffix."""
+    rng = np.random.default_rng(seed + 4)
+    bases = [rng.integers(0, cfg.vocab_size, 128) for _ in range(FLEET_TEMPLATES)]
+    return [
+        np.concatenate([bases[min(int(rng.zipf(1.1)), FLEET_TEMPLATES) - 1],
+                        rng.integers(0, cfg.vocab_size, int(rng.integers(8, 65)))])
+        .astype(np.int32)
+        for _ in range(sum(FLEET_WAVES))
+    ]
+
+
+def _fleet_serve(router, prompts, drain=None) -> tuple[dict, list]:
+    """Submits `prompts` in FLEET_WAVES, three router steps after each
+    wave, then steps until the fleet is empty. `drain(router)` runs after
+    the second wave's steps. Returns (records by router rid, rids in
+    prompt order)."""
+    records, rids, i = {}, [], 0
+    for w, size in enumerate(FLEET_WAVES):
+        rids += [router.submit(p, max_new_tokens=FLEET_NEW)
+                 for p in prompts[i:i + size]]
+        i += size
+        for _ in range(3):
+            router.step()
+            records.update(router.drain_done_records())
+        if w == 1 and drain is not None:
+            drain(router)
+    while router.has_work:
+        router.step()
+        records.update(router.drain_done_records())
+    router.step()  # the reconciler retires what drained empty
+    records.update(router.drain_done_records())
+    return records, rids
+
+
+def fleet_phase(ContinuousBatcher, lm_mod, router_mod, fed_mod, anomaly_mod, da,
+                cfg, seed: int) -> dict:
+    """Leg 4g: the fleet router (`router/`) over in-process replicas that
+    share one model at TinyLlama-1.1B widths and WINDOW_LAYERS layers.
+    An affinity `FleetRouter(seed=0)` over two replicas, with one spare
+    in a `StaticSliceProvider` and a `ScalePolicy` in router ticks, serves
+    the leg's 16 requests in waves: the TTFT objective's breach scales
+    the fleet up once; after the second wave a migrating drain of a
+    replica with resident requests scales it down (the reconciler
+    retires and releases it once empty). Checked: every request's tokens
+    equal a solo engine's, no request dropped or failed, one scale-up,
+    the drained replica released; a round-robin fleet on the same waves
+    has the lower prefix hit rate; the federated exposition carries each
+    live replica's `cb_*` series under `replica` and none of the retired
+    one; the merged fleet trace holds the router and each live replica,
+    time-ordered, with a route event per request; an SLO-breach flight
+    bundle reads back; K2 and K1 launches counted per replica (the
+    wrappers' counts, read around each replica's step) add up to the
+    fleet's, and K2 / K1 are held to their plain versions on one decode
+    call of a replica."""
+    import dataclasses
+    import tempfile
+
+    cfg = dataclasses.replace(cfg, num_layers=WINDOW_LAYERS)
+    model = lm_mod.DecoderLM(cfg, device="cuda", seed=seed)
+    prompts = _fleet_prompts(cfg, seed)
+    per_replica = {}
+
+    class Counted(router_mod.EngineReplica):
+        """A replica whose steps add the K1 / K2 launches they make to
+        its own count."""
+
+        def step(self):
+            before = dict(da.LAUNCHES)
+            super().step()
+            for k, n in per_replica[self.name].items():
+                per_replica[self.name][k] = n + da.LAUNCHES[k] - before[k]
+
+    def make(name: str, **kw):
+        engine = ContinuousBatcher(cfg, model, **FLEET_KW, **kw)
+        engine.warm()
+        per_replica[name] = {"paged_attention": 0, "qkv_rope": 0}
+        return Counted(engine, name=name)
+
+    solo = make("solo")
+    t0 = time.monotonic()
+    rid_of = [solo.submit(p, max_new_tokens=FLEET_NEW) for p in prompts]
+    out = solo.engine.run()
+    solo_wall = time.monotonic() - t0
+    want = [out[r] for r in rid_of]
+    del solo
+    os.makedirs("chip_smoke_work", exist_ok=True)
+    work = tempfile.mkdtemp(prefix="fleet-", dir=os.path.abspath("chip_smoke_work"))
+    try:
+        replicas = [make(f"r{i}", slo_objectives=FLEET_SLO) for i in range(2)]
+        spare = make("spare", slo_objectives=FLEET_SLO)
+        provider = router_mod.StaticSliceProvider([spare])
+        flight = anomaly_mod.FlightRecorder(work, keep=64, min_interval_s=0.0)
+        router = router_mod.FleetRouter(
+            replicas, seed=0, provider=provider, fleet_refresh_s=0.0,
+            scale_policy=router_mod.ScalePolicy(**FLEET_POLICY), flight=flight,
+        )
+        drained = {}
+
+        def drain(router):
+            # The first pair's replica holding the most resident requests,
+            # migrating (the admitted spare keeps serving).
+            handle = max((h for h in router.active_handles() if h.name != "spare"),
+                         key=lambda h: h.replica.engine.drain_stats()["resident_slots"])
+            drained["name"] = handle.name
+            drained["resident"] = handle.replica.engine.drain_stats()
+            router.start_drain(handle, migrate=True)
+            if handle.replica.has_work:
+                _fail(f"fleet leg: the migrating drain left work on {handle.name}")
+
+        cap = {}
+        torch.cuda.synchronize()
+        da.reset_launch_counts()
+        for counts in per_replica.values():
+            for k in counts:
+                counts[k] = 0
+        t0 = time.monotonic()
+        with _captured(lm_mod, "fused_qkv_paged_attention", 12 * cfg.num_layers, cap):
+            records, rids = _fleet_serve(router, prompts, drain)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = dict(da.LAUNCHES)
+        if sorted(records) != sorted(rids):
+            _fail(f"fleet leg: {len(records)} records for {len(rids)} requests")
+        got = [records[r]["tokens"] for r in rids]
+        if got != want:
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            _fail(f"fleet leg: requests {bad} gave other tokens than a solo engine")
+        if any(router.obs.failed.value(labels) for labels in router.obs.failed.labelsets()):
+            _fail("fleet leg: the router counted failed requests")
+        events = router.scale_events()
+        released = [r.name for r in provider.released]
+        if events["up"] != 1 or released != [drained.get("name")]:
+            _fail(f"fleet leg: scale events {events}, released {released}, "
+                  f"drained {drained}")
+        served = {}
+        for rec in records.values():
+            served[rec["replica"]] = served.get(rec["replica"], 0) + 1
+        if served.get("spare", 0) < 1:
+            _fail(f"fleet leg: the admitted spare served nothing: {served}")
+        for name, counts in per_replica.items():
+            if name in served and min(counts.values()) <= 0:
+                _fail(f"fleet leg: replica {name} served {served[name]} requests "
+                      f"with K1/K2 launches {counts}")
+        total = {k: sum(c[k] for c in per_replica.values())
+                 for k in ("paged_attention", "qkv_rope")}
+        if total != {k: launches[k] for k in total} or launches["decode_attention"]:
+            _fail(f"fleet leg: per-replica launches {per_replica} against the "
+                  f"wrappers' {launches}")
+        live = sorted(h.name for h in router._handles)
+        text = router.federated_metrics()
+        fams = fed_mod.parse_exposition(text)
+        labelled = {lab.get("replica") for name, fam in fams.items()
+                    if name.startswith("cb_") for _, lab, _ in fam["samples"]}
+        if labelled != set(live) or "router_requests_total" not in fams:
+            _fail(f"fleet leg: federated replicas {labelled}, the fleet {live}")
+        merged = router.fleet_trace()
+        procs = set(merged["otherData"]["processes"].values())
+        evs = [e for e in merged["traceEvents"] if e.get("ph") != "M"]
+        routes = {e["args"]["trace_id"] for e in evs if e["name"] == "route"}
+        if (procs != {"router"} | {f"replica {n}" for n in live}
+                or [e["ts"] for e in evs] != sorted(e["ts"] for e in evs)
+                or not {records[r]["trace_id"] for r in rids} <= routes):
+            _fail(f"fleet leg: merged trace processes {procs}, {len(routes)} routes")
+        bundles = flight.bundles()
+        slo_dumps = [b for b in bundles if b["trigger"] == "slo_breach"]
+        if not slo_dumps or not all("debug_state" in b for b in slo_dumps):
+            _fail(f"fleet leg: SLO-breach bundles {[b['trigger'] for b in bundles]}")
+        affinity = {"prefix_hit_rate": router.prefix_hit_rate,
+                    "stats": router.stats(), "trace_events": len(evs),
+                    "flight_triggers": sorted({b["trigger"] for b in bundles})}
+        del router, replicas, spare, provider
+        rr_reps = [make(f"rr{i}") for i in range(2)]
+        rr = router_mod.FleetRouter(rr_reps, policy="round_robin", seed=0)
+        t1 = time.monotonic()
+        rr_records, rr_rids = _fleet_serve(rr, prompts)
+        rr_wall = time.monotonic() - t1
+        if [rr_records[r]["tokens"] for r in rr_rids] != want:
+            _fail("fleet leg: the round-robin fleet gave other tokens")
+        if not affinity["prefix_hit_rate"] > rr.prefix_hit_rate:
+            _fail(f"fleet leg: affinity hit rate {affinity['prefix_hit_rate']} "
+                  f"not above round-robin's {rr.prefix_hit_rate}")
+        rr_rate = rr.prefix_hit_rate
+        del rr, rr_reps
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # The leg's engines are garbage now: collect them here, not inside a
+    # later leg's CUDA-graph capture (which is global: a CUDA object freed
+    # by the collector mid-capture invalidates it).
+    gc.collect()
+    stats = affinity.pop("stats")
+    return {
+        "layers": cfg.num_layers, "engine": dict(FLEET_KW), "waves": FLEET_WAVES,
+        "requests": len(prompts), "new_tokens_each": FLEET_NEW,
+        "templates": FLEET_TEMPLATES, "slo_objectives": FLEET_SLO,
+        "policy": FLEET_POLICY, "wall_s": wall, "solo_wall_s": solo_wall,
+        "round_robin_wall_s": rr_wall, "served_by": served,
+        "scale_events": events, "drained": drained, "released": released,
+        "launches": launches, "launches_per_replica": per_replica,
+        **affinity, "round_robin_prefix_hit_rate": rr_rate,
+        "xfer_bytes": stats["xfer_bytes"], "anomaly_flagged": stats["anomaly_flagged"],
+        "kernels": _path_paged_kernels(da, cap, "fleet decode step 12"),
+    }
 
 
 def unfused_phase(ContinuousBatcher, DecoderLM, da, cfg, seed: int) -> dict:
@@ -4956,7 +5262,10 @@ def main() -> int:
     from walkai_nos_tpu_torch.models import vit_serving
     from walkai_nos_tpu_torch.models import serve as serve_mod
     from walkai_nos_tpu_torch.models.serve import ContinuousBatcher
+    from walkai_nos_tpu_torch.obs import anomaly as anomaly_mod
     from walkai_nos_tpu_torch.obs import capture as capture_mod
+    from walkai_nos_tpu_torch.obs import federation as fed_mod
+    from walkai_nos_tpu_torch import router as router_mod
     from walkai_nos_tpu_torch.ops import _build
     from walkai_nos_tpu_torch.sim import replay as replay_mod
     from walkai_nos_tpu_torch.ops import sp_prefill as sp_mod
@@ -5035,6 +5344,13 @@ def main() -> int:
           f"{window['sentinel_launches']['qkv_rope']['launches']} over "
           f"{window['dispatches_armed']} dispatches at {window['layers']} layers, "
           f"trace {window['trace_bytes']} bytes", flush=True)
+    sa = obs["slo_attrib"]
+    print(f"SLO + attribution on {smi} (LM serving, eager): roofline_fraction "
+          f"{sa['roofline_fraction']}, host_overhead_frac {sa['host_overhead_frac']}, "
+          f"device_step_ms {sa['device_step_ms']} over {sa['window_dispatches']} "
+          f"dispatches, kinds {sa['kinds']}; windows {sa['window_counts']}, "
+          f"slo_ok {sa['slo_ok']}, burn {sa['burn_rate']}, saturation "
+          f"{sa['saturation']} {sa['components']}", flush=True)
     phase_end_s['obs'] = time.monotonic() - start
     serve["profile"] = run_window("lm_serving", args.seed)
     print(json.dumps({"serving": serve}), flush=True)
@@ -5085,6 +5401,23 @@ def main() -> int:
           f"{spec['spec_off']['verified']} and random draft "
           f"{spec['spec_random_draft']['verified']} verified", flush=True)
     phase_end_s['capture_replay'] = time.monotonic() - start
+    fleet = fleet_phase(ContinuousBatcher, lm_mod, router_mod, fed_mod, anomaly_mod,
+                        da, cfg, args.seed)
+    print(json.dumps({"fleet": fleet}), flush=True)
+    print(f"Fleet on {smi} ({fleet['layers']} layers, one model): "
+          f"{fleet['requests']} requests x {fleet['new_tokens_each']} in "
+          f"{fleet['wall_s']:.3f} s (solo engine {fleet['solo_wall_s']:.3f} s, "
+          f"round-robin fleet {fleet['round_robin_wall_s']:.3f} s); served by "
+          f"{fleet['served_by']}; scale events {fleet['scale_events']}, drained "
+          f"{fleet['drained'].get('name')} with "
+          f"{fleet['drained']['resident']['resident_slots']} resident slots; prefix "
+          f"hit rate {fleet['prefix_hit_rate']:.4f} affinity, "
+          f"{fleet['round_robin_prefix_hit_rate']:.4f} round-robin; K1/K2 launches "
+          f"{fleet['launches']['paged_attention']}/{fleet['launches']['qkv_rope']}, "
+          f"per replica {fleet['launches_per_replica']}; flight bundles "
+          f"{fleet['flight_triggers']}, anomaly flagged {fleet['anomaly_flagged']}",
+          flush=True)
+    phase_end_s['fleet'] = time.monotonic() - start
     loop_serve = loop_serving_phase(ContinuousBatcher, da, model, cfg, serve_prompts)
     loop_serve["profile"] = window = run_window("loop_serving", args.seed)
     print(json.dumps({"loop_serving": loop_serve}), flush=True)
@@ -5094,7 +5427,12 @@ def main() -> int:
           f"{loop_serve['folds']} folds ({loop_serve['folded_step_share']:.3f} of "
           f"the steps); window: {window['folds']} folds, each one graph launch "
           f"and one sync, busy {window['device_busy_share']:.3f} "
-          f"(folds {window['fold_device_busy_share']:.3f})", flush=True)
+          f"(folds {window['fold_device_busy_share']:.3f}); loop_steps 4 engine: "
+          f"roofline_fraction {loop_serve['attrib']['roofline_fraction']}, "
+          f"host_overhead_frac {loop_serve['attrib']['host_overhead_frac']}, "
+          f"device_step_ms {loop_serve['attrib']['device_step_ms']}, kinds "
+          f"{ {k: v['dispatches'] for k, v in loop_serve['attrib']['kinds'].items()} }",
+          flush=True)
     phase_end_s['loop_serving'] = time.monotonic() - start
     spec_serve = spec_serving_phase(ContinuousBatcher, lm_mod, da, model, cfg,
                                     serve_prompts, serve_tokens, args.seed,
@@ -5358,14 +5696,16 @@ def main() -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             })
-    # The sp, transfer and capture legs run K2 + K1 at steps 1: launches
-    # counted by the sp-on run, by the transfer leg's greedy migration
-    # (source and target) and by the captured run, each kernel checked
-    # and timed on one of the leg's own calls.
+    # The sp, transfer, capture and fleet legs run K2 + K1 at steps 1:
+    # launches counted by the sp-on run, by the transfer leg's greedy
+    # migration (source and target), by the captured run and by the
+    # fleet's replicas, each kernel checked and timed on one of the leg's
+    # own calls.
     for leg, launched, measured in (
             ("sp", sp_serve["sp_on"]["launches"], sp_serve["kernels"]),
             ("xfer", xfer["b_greedy"]["launches"], xfer["kernels"]),
-            ("capture", capture["captured"]["launches"], capture["kernels"])):
+            ("capture", capture["captured"]["launches"], capture["kernels"]),
+            ("fleet", fleet["launches"], fleet["kernels"])):
         for name in ("paged_attention", "qkv_rope"):
             source, replaces = decode_sites[name]
             t = measured[name]
@@ -5398,6 +5738,7 @@ def main() -> int:
             "serving": serve, "obs": obs, "loop_serving": loop_serve,
             "spec_serving": spec_serve,
             "sp_serving": sp_serve, "transfer": xfer, "capture_replay": capture,
+            "fleet": fleet,
             "generate": generate, "speculative": speculative,
             "dense_serving": dense_serve, "exactness_f32": exact,
             "spec_exactness_f32": spec_exact,

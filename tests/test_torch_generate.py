@@ -14,6 +14,7 @@ other summation orders).
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -91,12 +92,14 @@ def test_greedy_tokens_and_prefill_logits_match_jax(models, name):
     bucket = tdec.cache_bucket(21 + 12, cfg.max_seq_len)
     jcfg = jlm.LMConfig(**CONFIGS[name], cache_len=bucket)
     jmodel = jlm.DecoderLM(jcfg)
-    cache = jmodel.init(
-        jax.random.PRNGKey(0), jnp.zeros((3, 1), jnp.int32), decode=True
+    # Both traced once (jit), not dispatched op by op: the same zero cache
+    # and the same forward, for a fraction of the compiles.
+    cache = jax.jit(functools.partial(jmodel.init, decode=True))(
+        jax.random.PRNGKey(0), jnp.zeros((3, 1), jnp.int32)
     )["cache"]
-    jl, _ = jmodel.apply(
+    jl, _ = jax.jit(functools.partial(jmodel.apply, decode=True,
+                                      mutable=["cache"]))(
         {"params": params, "cache": cache}, jnp.asarray(prompt),
-        decode=True, mutable=["cache"],
     )
     jl = np.asarray(jl)
     tcache = tlm.DenseCache.zeros(dataclasses.replace(cfg, cache_len=bucket), 3, "cpu")

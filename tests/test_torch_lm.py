@@ -10,6 +10,7 @@ summation order: atol = rtol = 1e-4.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -52,6 +53,14 @@ def _jax_params(cfg, seed):
     )
 
 
+def _zero_cache(jmodel, b):
+    """The flax model's empty decode cache for `b` rows, traced once
+    (jit) rather than initialised op by op."""
+    return jax.jit(functools.partial(jmodel.init, decode=True))(
+        jax.random.PRNGKey(0), jnp.zeros((b, 1), jnp.int32)
+    )["cache"]
+
+
 def _run_both(family, index0, steps_after=3, seed=0, **extra):
     fields = {**FAMILIES[family], **extra}
     jcfg = jlm.LMConfig(**fields, **PAGED)
@@ -63,9 +72,7 @@ def _run_both(family, index0, steps_after=3, seed=0, **extra):
     index = np.asarray(index0, np.int32)
 
     jmodel = jlm.DecoderLM(jcfg)
-    cache = jmodel.init(
-        jax.random.PRNGKey(0), jnp.zeros((b, 1), jnp.int32), decode=True
-    )["cache"]
+    cache = _zero_cache(jmodel, b)
     cache = jax.tree.map(
         lambda leaf: jnp.asarray(index) if leaf.ndim == 1 else leaf, cache
     )
@@ -177,9 +184,7 @@ def test_moe_cache_forwards_match_jax():
     jcfg, tcfg = jlm.LMConfig(**fields), tlm.LMConfig(**fields)
     params = _jax_params(jcfg, 1)
     jmodel = jlm.DecoderLM(jcfg)
-    cache = jmodel.init(
-        jax.random.PRNGKey(0), jnp.zeros((2, 1), jnp.int32), decode=True
-    )["cache"]
+    cache = _zero_cache(jmodel, 2)
     apply = jax.jit(lambda cache, tokens: jmodel.apply(
         {"params": params, "cache": cache}, tokens, decode=True,
         mutable=["cache"],

@@ -141,7 +141,9 @@ def test_full_forward_matches_jax(family, dtype):
     fields = dict(FAMILIES[family], dtype=dtype)
     params = _noisy_params(jlm.LMConfig(**fields))
     tokens = _tokens()
-    want = np.asarray(jlm.DecoderLM(jlm.LMConfig(**fields)).apply(
+    # Traced once (jit), not dispatched op by op: a few compiles, not
+    # hundreds.
+    want = np.asarray(jax.jit(jlm.DecoderLM(jlm.LMConfig(**fields)).apply)(
         {"params": params}, jnp.asarray(tokens)
     ))
     cfg = tlm.LMConfig(**fields)

@@ -37,14 +37,18 @@ def _both(x, *, num_experts, top_k, capacity_factor, mlp_dim=32, seed=0, same_ex
     kw = dict(hidden_dim=d, mlp_dim=mlp_dim, num_experts=num_experts, top_k=top_k,
               capacity_factor=capacity_factor, dtype=jnp.float32)
     jmoe = JaxMoE(**kw)
-    params = jax.device_get(jmoe.init(jax.random.PRNGKey(seed), jnp.asarray(x))["params"])
+    # Init and forward each traced once (jit), not dispatched op by op:
+    # a few compiles instead of hundreds (the init's values are the same).
+    params = jax.device_get(
+        jax.jit(jmoe.init)(jax.random.PRNGKey(seed), jnp.asarray(x))["params"])
     params = jax.tree.map(np.array, params)  # writable copies
     rng = np.random.default_rng(seed)
     params["router"]["bias"] = rng.normal(0, 0.1, num_experts).astype(np.float32)
     if same_experts:
         params["experts_up"][:] = params["experts_up"][:1]
         params["experts_down"][:] = params["experts_down"][:1]
-    jy, state = jmoe.apply({"params": params}, jnp.asarray(x), mutable=["intermediates"])
+    jy, state = jax.jit(lambda p, x: jmoe.apply(
+        {"params": p}, x, mutable=["intermediates"]))(params, jnp.asarray(x))
     jaux = jax.tree_util.tree_leaves(state["intermediates"])[0]
     tmoe = MoEMlp(d, mlp_dim, num_experts, top_k=top_k, capacity_factor=capacity_factor,
                   dtype=torch.float32, param_dtype=torch.float32, device="cpu",

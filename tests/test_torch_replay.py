@@ -18,7 +18,7 @@ The tiny f32 config of `tests/test_capture_replay.py` (1 layer, vocab
   under capacity drops gets from the port whatever JAX says of it;
 - `warm()` records nothing, a migrated request replays from the
   capture its importer wrote, and `debug_state()` equals JAX's key for
-  key mid-run, less the `tp`, `attrib` and `slo` blocks.
+  key mid-run, less the `tp` block.
 
 Sampled streams differ between the packages (counter-based Gumbel noise
 against threefry bits), so cross-package replays are greedy. The JAX
@@ -53,7 +53,7 @@ FIELDS = dict(vocab_size=64, hidden_dim=32, num_layers=1, num_heads=2,
               max_seq_len=320, dtype="float32")
 ENGINE = dict(slots=2, cache_len=256, prompt_bucket=16, chunk_steps=2)
 # The blocks of JAX's debug_state() the port leaves to later slices.
-LATER_BLOCKS = ("tp", "attrib", "slo")
+LATER_BLOCKS = ("tp",)
 
 
 def _jax_dev(self, a):
@@ -212,9 +212,10 @@ def test_capture_is_accepted_and_obs_still_refused(params, tmp_path):
     assert engine.capture_stats()["fingerprint"] == engine.fingerprint_id
     with pytest.raises(ValueError, match="capture must be"):
         _port(params, capture=12345)
-    # The obs planes' SLO windows are still refused.
-    with pytest.raises(NotImplementedError, match="SLO"):
-        _port(params, slo_window_s=5.0)
+    # The obs planes' SLO windows are ported: JAX's options and errors.
+    assert _port(params, slo_window_s=5.0).slo_stats()["window_s"] == 5.0
+    with pytest.raises(ValueError, match="unknown SLO objective"):
+        _port(params, slo_objectives={"ttft_s": 1.0})
 
 
 def test_jax_paged_prompt_bucket_capture_replays_in_the_port(tmp_path):
@@ -652,16 +653,23 @@ def _state_schedule(engine):
 @pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
 def test_debug_state_equals_jax(params, tmp_path, paged):
     """At the same point of the same run, JAX's `debug_state()` and the
-    port's hold the same keys, less the three blocks of later slices, and
+    port's hold the same keys, less the `tp` block of a later slice, and
     the same values in the engine's own books (slots, prefilling, pool,
-    queue, prefix, spec, loop, sp, LoRA, and the capture's tallies)."""
-    jeng = _jax(params, paged=paged, capture=str(tmp_path / "jax"),
-                **({} if paged else {"slots": 3}))
-    teng = _port(params, paged=paged, capture=str(tmp_path / "port"),
-                 **({} if paged else {"slots": 3}))
-    _state_schedule(jeng)
-    _state_schedule(teng)
-    want, got = _json(jeng.debug_state()), _json(teng.debug_state())
+    queue, prefix, spec, loop, sp, LoRA, the capture's tallies, and what
+    of the attribution and SLO blocks does not depend on wall time)."""
+    # An SLO window longer than any run here, so the windows hold every
+    # sample however slow the host.
+    kw = dict(paged=paged, slo_window_s=3600.0, **({} if paged else {"slots": 3}))
+    jeng = _jax(params, capture=str(tmp_path / "jax"), **kw)
+    teng = _port(params, capture=str(tmp_path / "port"), **kw)
+    for eng in (jeng, teng):
+        # The SLO layer refreshes at every sync, not once a second of
+        # wall time: its saturation components then read the same sync.
+        eng._slo.refresh_s = 0.0
+        _state_schedule(eng)
+    # One snapshot each: the SLO block's spans and quantiles read the clock.
+    state = teng.debug_state()
+    want, got = _json(jeng.debug_state()), _json(state)
     assert list(got) == [k for k in want if k not in LATER_BLOCKS]
     for key in got:
         assert set(got[key]) == set(want[key]) if isinstance(got[key], dict) else True
@@ -673,4 +681,15 @@ def test_debug_state_equals_jax(params, tmp_path, paged):
         assert got["capture"][key] == want["capture"][key], key
     for key in ("enabled", "kv_dtype", "w_dtype", "kv_bytes_per_token"):
         assert got["quant"][key] == want["quant"][key], key
-    assert json.loads(json.dumps(teng.debug_state())) == got
+    for key in ("roofline_fraction", "hbm_bytes_per_step", "window_dispatches"):
+        assert got["attrib"][key] == want["attrib"][key], key
+    assert ({k: v["dispatches"] for k, v in got["attrib"]["kinds"].items()}
+            == {k: v["dispatches"] for k, v in want["attrib"]["kinds"].items()})
+    for key in ("window_s", "objectives", "slo_ok", "ok", "burn_rate"):
+        assert got["slo"][key] == want["slo"][key], key
+    assert ({k: w["count"] for k, w in got["slo"]["windows"].items()}
+            == {k: w["count"] for k, w in want["slo"]["windows"].items()})
+    comps, jcomps = (d["slo"]["saturation"]["components"] for d in (got, want))
+    for key in ("busy", "queue", "pool"):
+        assert comps[key] == jcomps[key], key
+    assert json.loads(json.dumps(state)) == got

@@ -59,8 +59,9 @@ def _requests():
 @pytest.fixture(scope="module")
 def served():
     cfg = jlm.LMConfig(**FIELDS)
+    # Traced once (jit): the values of an op-by-op init, in a few compiles.
     params = jax.device_get(
-        jlm.DecoderLM(cfg).init_params(jax.random.PRNGKey(0))
+        jax.jit(jlm.DecoderLM(cfg).init_params)(jax.random.PRNGKey(0))
     )
     reqs = _requests()
     with pytest.MonkeyPatch.context() as mp:
@@ -187,15 +188,22 @@ def test_pool_overflow_rejected(served):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        # The SLO windows are not ported: their options, set, raise rather
-        # than sit inert. (The obs planes are: tests/test_torch_serve_obs.py.)
-        dict(slo_objectives={"ttft_s": 1.0}),
-        dict(slo_window_s=5.0),
+        # What the port still refuses rather than run inert: a tensor-
+        # parallel config, and the fleet router's canary role. (The SLO
+        # windows are ported: tests/test_torch_slo.py.)
+        dict(tp_devices=2),
+        dict(role="canary"),
     ],
 )
 def test_later_slice_features_raise(served, kwargs):
-    with pytest.raises(NotImplementedError):
-        _port(served, **kwargs)
+    from walkai_nos_tpu_torch.router import EngineReplica, FleetRouter
+
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        if "role" in kwargs:
+            fleet = FleetRouter([EngineReplica(_port(served))])
+            fleet.add_replica(EngineReplica(_port(served)), **kwargs)
+        else:
+            tlm.LMConfig(**{**FIELDS, **kwargs})
 
 
 @pytest.mark.parametrize(

@@ -54,8 +54,9 @@ def _requests():
 @pytest.fixture(scope="module")
 def served():
     cfg = jlm.LMConfig(**FIELDS)
+    # Traced once (jit): the values of an op-by-op init, in a few compiles.
     params = jax.device_get(
-        jlm.DecoderLM(cfg).init_params(jax.random.PRNGKey(1))
+        jax.jit(jlm.DecoderLM(cfg).init_params)(jax.random.PRNGKey(1))
     )
     reqs = _requests()
     with pytest.MonkeyPatch.context() as mp:

@@ -68,8 +68,9 @@ def _serve(engine):
 @pytest.fixture(scope="module")
 def served():
     cfg = jlm.LMConfig(**FIELDS)
+    # Traced once (jit): the values of an op-by-op init, in a few compiles.
     params = jax.device_get(
-        jlm.DecoderLM(cfg).init_params(jax.random.PRNGKey(0))
+        jax.jit(jlm.DecoderLM(cfg).init_params)(jax.random.PRNGKey(0))
     )
     out = {"params": params}
     with pytest.MonkeyPatch.context() as mp:

@@ -49,7 +49,9 @@ def _images(cfg, b=2, seed=1):
 def _both(cfg, seed=0):
     params = _jax_params(cfg, seed)
     images = _images(cfg)
-    want = jvit.ViTDetector(cfg).apply({"params": params}, images)
+    # Traced once (jit), not dispatched op by op: a few compiles, not
+    # hundreds.
+    want = jax.jit(jvit.ViTDetector(cfg).apply)({"params": params}, images)
     with torch.no_grad():
         got = _port(cfg, params)(torch.from_numpy(images))
     return got, want

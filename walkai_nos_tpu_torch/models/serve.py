@@ -120,13 +120,18 @@ What differs from the JAX engine, and why:
   no-op bundle and the views flag their zeros `obs_disabled`, a
   `ServingObs` passed in is shared. A dispatch's trace event carries its
   host assembly time (assembly start to the return of its launches) and
-  the time the host blocked at the sync the engine already makes. The
-  SLO windows (`slo_*`, which raise NotImplementedError set to other
-  than their JAX defaults) and `DispatchAttribution` are not ported yet:
-  their series are registered and stay unwritten, and `saturation`,
-  `slo_ok`, `slo_stats`, `attrib_stats`, `tp_stats` and
-  `debug_state()`'s `attrib`, `slo` and `tp` blocks wait with them.
-  `prompt_bucket` is fingerprinted in paged mode, where, as in JAX, the
+  the time the host blocked at the sync the engine already makes.
+- At that sync `obs/attrib.DispatchAttribution` records the split by
+  composition class against the dispatch's analytic HBM floor (the
+  served weights' storage bytes plus the resident KV, every step, at
+  the card's published bandwidth; no floor on the CPU), and
+  `obs/slo.SloTracker` advances the windowed TTFT / TPOT / dispatch
+  views (`slo_window_s`, `slo_objectives` as in JAX) and the composed
+  saturation signal: `attrib_stats()`, `slo_stats()`, `saturation`,
+  `slo_ok` and `debug_state()`'s `attrib` and `slo` blocks, what the
+  fleet router (`router/`) reads. `tp_stats` and `debug_state()`'s `tp`
+  block wait for tensor parallelism.
+- `prompt_bucket` is fingerprinted in paged mode, where, as in JAX, the
   lane does not read it.
 - The weights digest of `config_fingerprint()` covers the tree the
   engine serves, read off its `DecoderLM` under the flax leaf names
@@ -169,7 +174,13 @@ from walkai_nos_tpu_torch.models.serve_lane import (
     to_device,
 )
 from walkai_nos_tpu_torch.models.serve_xfer import BlockTransfer
-from walkai_nos_tpu_torch.obs.attrib import classify_dispatch
+from walkai_nos_tpu_torch.obs.attrib import (
+    DispatchAttribution,
+    classify_dispatch,
+    kv_hbm_bytes_per_token,
+    params_hbm_bytes,
+    tp_ici_bytes_per_token,
+)
 from walkai_nos_tpu_torch.obs.capture import (
     CaptureLog,
     fingerprint_id,
@@ -177,13 +188,20 @@ from walkai_nos_tpu_torch.obs.capture import (
     tree_crc32,
 )
 from walkai_nos_tpu_torch.obs.serving import ServingObs
+from walkai_nos_tpu_torch.obs.slo import SloTracker
 from walkai_nos_tpu_torch.ops.decode_attention import MAX_KERNEL_STEPS, PAGE_ROWS
+from walkai_nos_tpu_torch.utils.flops import hbm_bytes_per_s
 
 __all__ = ["ContinuousBatcher"]
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
+
+
+def _busy(snapshot) -> int:
+    """Slots holding a request in a dispatch's slot snapshot."""
+    return sum(1 for r in snapshot if r is not None)
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -238,10 +256,6 @@ class ContinuousBatcher(BlockTransfer):
         adapters=None,
         device=None,
     ) -> None:
-        if slo_objectives is not None or slo_window_s != 30.0:
-            # The SLO options keep their JAX names; set to anything but
-            # the JAX default they raise, never sit inert.
-            raise _not_ported("the SLO windows (slo_*)", "obs")
         # Config-fingerprint snapshot of the caller's config, taken before
         # any replace (JAX :393-406): replay rebuilds from these fields and
         # the engine re-derives the ones it owns.
@@ -437,6 +451,33 @@ class ContinuousBatcher(BlockTransfer):
             self.obs.spec_k_gauge.set(spec_k)
             self.obs.spec_disabled.set(0)
         self._record_kv_backing_bytes()
+        # Device-time attribution (JAX :667-702): each dispatch's host
+        # assembly against the wait at its sync, beside its analytic HBM
+        # floor. The cost model reads the served weights' storage bytes
+        # and the pool's KV bytes per token; the card's bandwidth comes
+        # from its name, and on the CPU there is none, so the roofline
+        # gauge stays unset there, as on JAX's CPU.
+        bw = (
+            hbm_bytes_per_s(torch.cuda.get_device_name(self.device))
+            if self.device.type == "cuda" else None
+        )
+        self._param_bytes = params_hbm_bytes(self.model)
+        self._attrib = DispatchAttribution(
+            self.obs,
+            param_bytes=self._param_bytes,
+            kv_bytes_per_token=self._kv_bytes_per_token(),
+            hbm_bytes_per_s=bw,
+            ici_bytes_per_token=tp_ici_bytes_per_token(self.cfg),
+        )
+        # The sliding-window SLO layer and the composed saturation
+        # signal (JAX :703-711); an unknown objective raises its
+        # ValueError here.
+        self._slo = SloTracker(
+            self.obs,
+            slots=slots,
+            window_s=slo_window_s,
+            objectives=slo_objectives,
+        )
         self._loop = None
         if loop_steps > 1:
             self._loop = DecodeLoop(
@@ -819,14 +860,9 @@ class ContinuousBatcher(BlockTransfer):
         return {} if self.obs.enabled else {"obs_disabled": True}
 
     def _kv_bytes_per_token(self) -> int:
-        """Cache bytes one resident token takes: per layer, K and V of
-        every kv head at the storage dtype's size, plus one f32 scale per
-        row and head in a quantized pool ("int8-sim" too: its scale pools
-        are resident) (JAX `obs/attrib.kv_hbm_bytes_per_token`)."""
-        c = self.cfg
-        item = torch.empty((), dtype=c.kv_storage_dtype).element_size()
-        scale = 4 if c.kv_quant else 0
-        return c.num_layers * 2 * c.kv_heads * (c.head_dim * item + scale)
+        """Cache bytes one resident token takes
+        (`obs/attrib.kv_hbm_bytes_per_token`)."""
+        return kv_hbm_bytes_per_token(self.cfg)
 
     def _record_kv_backing_bytes(self) -> None:
         """One-shot `cb_kv_cache_bytes_total{dtype}` (JAX :2861-2884): the
@@ -1034,11 +1070,39 @@ class ContinuousBatcher(BlockTransfer):
             ),
         }
 
+    def slo_stats(self) -> dict:
+        """Sliding-window SLO view (`obs/slo.py`): windowed TTFT / TPOT /
+        dispatch quantiles, per-objective compliance and burn rate, and
+        the composed saturation signal. The same shape with telemetry
+        off, flagged `obs_disabled`."""
+        return self._slo.stats(time.monotonic())
+
+    def attrib_stats(self) -> dict:
+        """Device-time attribution view (`obs/attrib.py`): per-kind
+        dispatch / device / host totals and the trailing window's
+        device-step, host-overhead and roofline gauges. The same shape
+        with telemetry off, flagged `obs_disabled`."""
+        return self._attrib.stats()
+
+    @property
+    def saturation(self) -> float | None:
+        """Composed scale signal in [0, 1] from the SLO layer's last
+        refresh (the max of busy / queue / queue-trend / pool pressure);
+        None before the first dispatch or with telemetry off."""
+        return self._slo.saturation
+
+    @property
+    def slo_ok(self) -> bool | None:
+        """Overall SLO compliance, live over the current window: False
+        iff a configured objective measurably breached its error budget;
+        None before the first dispatch or with telemetry off."""
+        return self._slo.ok_at(time.monotonic())
+
     def debug_state(self) -> dict:
         """One JSON-safe snapshot of the engine (the JAX engine's
-        `debug_state()`, without its `tp`, `attrib` and `slo` blocks):
-        slots, prefilling entries, the pool's books, and the prefix,
-        spec, loop, quant, sp, capture and LoRA views. The pool's
+        `debug_state()`, without its `tp` block): slots, prefilling
+        entries, the pool's books, and the prefix, spec, loop, quant, sp,
+        capture, attribution, SLO and LoRA views. The pool's
         `in_use` is derived from the free and parked counts it is
         reported beside, so the counts always sum to the pool."""
         pool = self.pool
@@ -1086,6 +1150,8 @@ class ContinuousBatcher(BlockTransfer):
             "quant": self.quant_stats(),
             "sp": self.sp_stats(),
             "capture": self.capture_stats(),
+            "attrib": self.attrib_stats(),
+            "slo": self.slo_stats(),
             "lora": self.lora_stats(),
         }
 
@@ -1368,11 +1434,10 @@ class ContinuousBatcher(BlockTransfer):
         t_host0 = time.monotonic()
         table, lane, finished, lane_rows = None, None, [], 0
         if self.paged:
-            t0, table, lane, finished, lane_rows = self._paged_prologue(
-                self.chunk_steps, advance=True
-            )
+            (t0, table, lane, finished, lane_rows,
+             resident) = self._paged_prologue(self.chunk_steps, advance=True)
         else:
-            self._record_kv_snapshot()
+            resident = self._record_kv_snapshot()
             self.obs.profile.on_dispatch()
             t0 = time.monotonic()
         emitted = decode_chunk(
@@ -1382,8 +1447,9 @@ class ContinuousBatcher(BlockTransfer):
             run_lane(self.model, self._state, lane, self._lora)
         host, ready = self._to_host(emitted)
         snapshot, fresh = self._epilogue(finished, t0, self.chunk_steps)
-        ctx = self._trace_ctx(
-            snapshot, lane_rows, False, self.chunk_steps, t_host0
+        ctx = self._attrib_ctx(
+            _busy(snapshot), lane_rows, False, self.chunk_steps, t_host0,
+            resident,
         )
         return host, ready, snapshot, fresh, t0, ctx
 
@@ -1391,9 +1457,10 @@ class ContinuousBatcher(BlockTransfer):
         """Back the rows this dispatch writes before the table snapshot
         names them, record the KV gauges, tick the profile hook, upload
         the table and assemble the prefill lane. Returns (dispatch time,
-        table, lane or None, finished, lane rows in use)."""
+        table, lane or None, finished, lane rows in use, resident tokens:
+        the cost model's cache-read term)."""
         self._ensure_decode_blocks(steps, advance=advance)
-        self._record_kv_snapshot()
+        resident = self._record_kv_snapshot()
         self.obs.profile.on_dispatch()
         if self._adapters is not None:
             # One per armed dispatch: every program gathers the stacks
@@ -1404,8 +1471,8 @@ class ContinuousBatcher(BlockTransfer):
         table = to_device(self.pool.table.astype(np.int32), self.device)
         if self._prefilling:
             lane, finished, lane_rows = self._prepare_lane(t0)
-            return t0, table, lane, finished, lane_rows
-        return t0, table, None, [], 0
+            return t0, table, lane, finished, lane_rows, resident
+        return t0, table, None, [], 0, resident
 
     def _epilogue(self, finished: list[_Prefill], t0: float, steps: int):
         """Snapshot the slots before finished prefills flip live (their
@@ -1416,9 +1483,7 @@ class ContinuousBatcher(BlockTransfer):
         self._slot_new = [False] * self.slots
         if self.paged:
             self._flip_finished(finished)
-        self._mark_dispatch(
-            sum(1 for r in snapshot if r is not None), t0, steps
-        )
+        self._mark_dispatch(_busy(snapshot), t0, steps)
         return snapshot, fresh
 
     def _mark_dispatch(self, busy: int, t0: float, steps: int) -> None:
@@ -1433,16 +1498,18 @@ class ContinuousBatcher(BlockTransfer):
         obs.total_steps.inc(self.slots * steps)
 
     @staticmethod
-    def _trace_ctx(snapshot, lane_rows: int, spec: bool, steps: int,
-                   t_host0: float) -> dict:
-        """What the dispatch's trace event needs at its sync: its
-        composition class, step window and host assembly seconds (from
-        the start of assembly to the return of its launches)."""
-        busy = sum(1 for r in snapshot if r is not None)
+    def _attrib_ctx(busy: int, lane_rows: int, spec: bool, steps: int,
+                    t_host0: float, resident: int) -> dict:
+        """What the dispatch's attribution and trace event need at its
+        sync (JAX :3302-3317): its composition class, step window, busy
+        slots, host assembly seconds (from the start of assembly to the
+        return of its launches) and resident tokens."""
         return {
             "kind": classify_dispatch(busy, lane_rows, spec),
             "steps": steps,
+            "busy": busy,
             "host_s": time.monotonic() - t_host0,
+            "resident": resident,
         }
 
     def _dispatch_spec(self):
@@ -1452,7 +1519,7 @@ class ContinuousBatcher(BlockTransfer):
         ride along."""
         t_host0 = time.monotonic()
         k = self._k_now
-        t0, table, lane, finished, lane_rows = self._paged_prologue(
+        t0, table, lane, finished, lane_rows, resident = self._paged_prologue(
             k + 1, advance=False
         )
         emitted, n_emit = spec_round(
@@ -1464,7 +1531,9 @@ class ContinuousBatcher(BlockTransfer):
             mirror_lane(self._draft, self._d_cache, lane)
         out = torch.cat([emitted, n_emit[:, None]], dim=1)
         snapshot, fresh = self._epilogue(finished, t0, k + 1)
-        ctx = self._trace_ctx(snapshot, lane_rows, True, k + 1, t_host0)
+        ctx = self._attrib_ctx(
+            _busy(snapshot), lane_rows, True, k + 1, t_host0, resident
+        )
         return out, snapshot, fresh, t0, ctx
 
     def _to_host(self, t: torch.Tensor):
@@ -1642,16 +1711,19 @@ class ContinuousBatcher(BlockTransfer):
             pool.reserved -= int(pool.slot_resv[s])
             pool.slot_resv[s] = 0
 
-    def _record_kv_snapshot(self) -> None:
+    def _record_kv_snapshot(self) -> int:
+        """Per-dispatch KV gauges; returns the resident-token count (the
+        attribution cost model's cache-read term)."""
         live = [r for r in self._slot_req if r is not None]
         resident = sum(len(r.prompt) + len(r.tokens) for r in live)
         resident += sum(p.consumed for p in self._prefilling)
         if resident <= 0:
-            return
+            return 0
         backing = self._kv_backing_bytes()
         self.obs.kv_ratio.set(round(backing / resident, 1))
         self.obs.kv_bytes.inc(float(backing))
         self.obs.kv_resident.inc(resident)
+        return resident
 
     # -- sync and commit -------------------------------------------------------
 
@@ -1677,10 +1749,30 @@ class ContinuousBatcher(BlockTransfer):
         self._finish_sync(now, ctx, now - t_sync0)
 
     def _finish_sync(self, now: float, ctx: dict, device_s: float) -> None:
-        """The dispatch's trace event, at its sync: composition, step
-        window, host assembly and blocked device seconds."""
+        """At a dispatch's sync (JAX :3680-3705): its host / device split
+        and composition to the attribution layer and the trace, then a
+        tick of the SLO layer with the live pressure signals (the paged
+        pool's headroom, None on the dense engine)."""
+        self._attrib.record(
+            kind=ctx["kind"], steps=ctx["steps"],
+            host_s=ctx["host_s"], device_s=device_s,
+            resident_tokens=ctx["resident"],
+            busy_slots=ctx["busy"],
+        )
         self.obs.trace.dispatch(
             now, ctx["kind"], ctx["steps"], ctx["host_s"], device_s
+        )
+        headroom = None
+        if self.paged:
+            pool = self.pool
+            headroom = (
+                len(pool.free_blocks) + pool.parked_count()
+            ) / max(1, self.pool_blocks - 1)
+        self._slo.on_sync(
+            now,
+            queue_depth=len(self._pending),
+            busy_slots=ctx["busy"],
+            headroom_frac=headroom,
         )
 
     def _process_spec(self, out, snapshot, fresh, t_dispatch, ctx) -> None:
@@ -1741,7 +1833,7 @@ class ContinuousBatcher(BlockTransfer):
         k = self._k_now
         kstep = (k + 1) if spec else self.chunk_steps
         self._ensure_decode_blocks(self.loop_steps * kstep, advance=False)
-        self._record_kv_snapshot()
+        resident = self._record_kv_snapshot()
         self.obs.profile.on_dispatch()
         if self._adapters is not None:
             self.obs.lora_gather.inc()
@@ -1772,7 +1864,7 @@ class ContinuousBatcher(BlockTransfer):
         steps = t_run * kstep
         # Host seconds: assembly to the fold's launch; device seconds: the
         # time blocked at its one sync (`DecodeLoop.sync_t0` / `sync_s`).
-        ctx = self._trace_ctx(snapshot, 0, spec, steps, t_host0)
+        ctx = self._attrib_ctx(busy, 0, spec, steps, t_host0, resident)
         ctx["host_s"] = self._loop.sync_t0 - t_host0
         obs = self.obs
         obs.dispatch_latency.observe(now - t0)
