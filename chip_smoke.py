@@ -137,6 +137,24 @@ the CUDA toolkit (`nvcc`). It:
    carries each replica's `cb_*` series under `replica`, the fleet trace
    merges, K2 / K1 launches are counted per replica, and K2 / K1 are
    held to their plain versions on one decode call of a replica;
+4h. the demo server leg (`server_phase`): `python -m
+   walkai_nos_tpu_torch.app.main` in a child process on the card (started
+   once leg 4g has ended, beside the leg's own in-process reference) at the
+   demo's widths (YOLOS-small behind /infer; `WALKAI_DEMO_LM=1`, LM_SMALL
+   on the paged engine with the app's default knobs, `loop_steps` 8,
+   capture armed; weights from seed 0). Concurrent /infer requests
+   coalesce into fewer batches than requests and /stats counts exactly
+   the fenced images (12 K3 launches a batch, whatever its bucket); 8
+   concurrent greedy /generate requests (two sharing a prefix) give the
+   tokens of the same seed's engine served in this process, a streamed
+   request its non-streamed twin's, an over-cache prompt the one-shot
+   path's (no K7 at MHA, as JAX routes it); a /debug/profile window writes a trace holding exactly
+   the K1 and K2 launches counted between its start and stop;
+   /healthz, /metrics, /debug/state and /debug/slo read as they should;
+   the downloaded capture replays token-identically through
+   `cmd/replay.py`; a `FleetRouter` over one `HttpReplica` of the child
+   gives the same tokens with no scrape error. K2 / K1 are held to their
+   plain versions on a decode call of the in-process engine;
 5. generates 128 tokens for 8 prompts through `make_generate_fn` at
    TinyLlama-1.1B width (dense cache, chunks of 16 steps): 22 K7
    launches per decode step, two runs give the same tokens, tokens/s,
@@ -257,9 +275,11 @@ exits non-zero before printing any result. Long outputs also go to
 from __future__ import annotations
 
 import argparse
+import atexit
 import bisect
 import contextlib
 import gc
+import io
 import itertools
 import json
 import math
@@ -1800,6 +1820,7 @@ def dense_kernel_phase(da, seed: int) -> tuple[list, list]:
 
 
 GENERATE_NEW, GENERATE_CHUNK = 128, 16
+GENERATE_WINDOW_NEW = 64  # the profiled window's tokens (the script's time)
 
 
 def _generate_prompts(cfg, seed: int) -> np.ndarray:
@@ -2221,9 +2242,9 @@ def window_spec_serving(seed: int) -> dict:
 
 
 def window_generate(seed: int) -> dict:
-    """One `make_generate_fn` run of the generate phase (8 prompts, 128
-    new tokens, chunks of 16) at WINDOW_LAYERS layers after a warm-up;
-    sentinel K7."""
+    """One `make_generate_fn` run of the generate phase's 8 prompts
+    (GENERATE_WINDOW_NEW new tokens, chunks of 16) at WINDOW_LAYERS layers
+    after a warm-up; sentinel K7."""
     import dataclasses
 
     from walkai_nos_tpu_torch.models.decode import make_generate_fn
@@ -2236,7 +2257,7 @@ def window_generate(seed: int) -> dict:
     gen = make_generate_fn(cfg, tokens_per_dispatch=GENERATE_CHUNK)
     gen(model, prompts[:, :16], 2)
     da.reset_launch_counts()
-    prof, wall, _ = _profiled(lambda: gen(model, prompts, GENERATE_NEW))
+    prof, wall, _ = _profiled(lambda: gen(model, prompts, GENERATE_WINDOW_NEW))
     return _profile_summary(prof, wall, "generate_profile.txt", da.LAUNCHES,
                             {"decode_attention": "decode_mma_kernel"})
 
@@ -3158,6 +3179,408 @@ def fleet_phase(ContinuousBatcher, lm_mod, router_mod, fed_mod, anomaly_mod, da,
         "xfer_bytes": stats["xfer_bytes"], "anomaly_flagged": stats["anomaly_flagged"],
         "kernels": _path_paged_kernels(da, cap, "fleet decode step 12"),
     }
+
+
+# The demo server leg (4h): the port's HTTP serving surface on the card.
+SERVER_LENS = (9, 17, 24, 33, 40, 48, 56, 60)  # all within the 64-token bucket
+SERVER_SHARED = 24  # prompts 0 and 1 share their first 24 tokens
+SERVER_INFER = (8, 4, 4)  # client threads, requests each, images a request
+SERVER_BUCKETS = (1, 8, 32)
+SERVER_PROFILE_DISPATCHES = 2  # the trace holds the first dispatch's launches
+SERVER_FALLBACK_LEN = 100  # + 64 new tokens overflows the 128-row engine cache
+# The app's engine at its default knobs, less the fold (bitwise the eager path).
+SERVER_ENGINE_KW = dict(slots=4, cache_len=128, prompt_bucket=64, chunk_steps=16,
+                        prefill_lanes=4, prefill_chunk=64)
+
+
+def _server_prompts(vocab: int, seed: int) -> list:
+    rng = np.random.default_rng(seed + 19)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in SERVER_LENS]
+    prompts[1][:SERVER_SHARED] = prompts[0][:SERVER_SHARED]
+    return prompts
+
+
+def _sse(base: str, payload: dict) -> tuple[list, float]:
+    """POSTs a streaming /generate; returns (events, seconds from the
+    request to the first token event)."""
+    import http.client
+    from urllib.parse import urlparse
+
+    conn = http.client.HTTPConnection(urlparse(base).netloc, timeout=120)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/generate", json.dumps(payload),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            _fail(f"server leg: streaming /generate -> {resp.status}")
+        events, first = [], None
+        while True:
+            line = resp.fp.readline()
+            if not line:
+                break
+            if line.startswith(b"data: "):
+                events.append(json.loads(line[6:]))
+                if first is None and "tokens" in events[-1]:
+                    first = time.perf_counter() - t0
+        return events, first
+    finally:
+        conn.close()
+
+
+def _concurrently(fn, items) -> tuple[list, float]:
+    """fn(item) for every item, one thread each; (results, wall s)."""
+    out, errors = [None] * len(items), []
+
+    def run(i):
+        try:
+            out[i] = fn(items[i])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(items))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        _fail(f"server leg: client errors {errors[:3]}")
+    return out, wall
+
+
+def server_boot() -> dict:
+    """Starts leg 4h's demo server child (`python -m
+    walkai_nos_tpu_torch.app.main` at the demo's widths: YOLOS-small and,
+    with `WALKAI_DEMO_LM=1`, LM_SMALL on the paged engine at the app's
+    default knobs, capture armed) and returns at once: a thread waits for
+    its /healthz while `server_phase` serves its in-process reference. An
+    exit handler kills the child if the script ends before the leg does."""
+    from walkai_nos_tpu_torch.utils import httpbench as hb
+
+    work = os.path.abspath(os.path.join("chip_smoke_work", "server"))
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    pycache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "walkai_nos_tpu_torch", "_kernels_build", "pycache")
+    env = {"WALKAI_DEMO_LM": "1", "WALKAI_CALIB_WINDOW_S": "0.2",
+           "WALKAI_CAPTURE_DIR": os.path.join(work, "capture"),
+           "PYTHONDONTWRITEBYTECODE": "", "PYTHONPYCACHEPREFIX": pycache}
+    booted = {"work": work, "log_path": os.path.join(work, "server.log")}
+
+    def boot():
+        t0 = time.monotonic()
+        try:
+            booted["proc"], booted["base"] = hb.spawn_server(
+                env, startup_timeout_s=300.0, log_path=booted["log_path"],
+                poll_s=0.1)
+        except Exception as e:  # noqa: BLE001 — reported by server_phase
+            booted["error"] = e
+        booted["startup_s"] = time.monotonic() - t0
+
+    def reap():
+        booted["thread"].join(330)
+        if booted.get("proc") is not None:
+            hb.kill_server(booted["proc"])
+
+    booted["thread"] = threading.Thread(target=boot, daemon=True)
+    booted["thread"].start()
+    atexit.register(reap)
+    return booted
+
+
+def server_phase(ContinuousBatcher, lm_mod, da, router_mod, seed: int) -> dict:
+    """Leg 4h: the port's demo server (`walkai_nos_tpu_torch/app/main.py`)
+    in a child process on the card (`server_boot`), at the demo's widths:
+    YOLOS-small behind /infer and LM_SMALL (d 512, 8 layers, 8 heads of
+    64, bias, no rotary) on the paged engine with the app's default knobs
+    (4 slots, prompt bucket 64, chunk 16, `loop_steps` 8, capture armed),
+    weights from seed 0. While the child starts, the same-seed engine is
+    served in this process (`loop_steps` 1: the fold is bitwise the eager
+    path) and one of its decode calls is kept; that run only gives the
+    reference tokens. Once the child is up (and idle), K2 / K1 are timed
+    on the kept call. Then: concurrent /infer requests coalesce into fewer
+    batches than requests and /stats counts exactly the fenced images; K3
+    launches per bucket; 8 concurrent greedy /generate requests (prompts 0
+    and 1 share a prefix) give the in-process engine's tokens, a streamed
+    one the same tokens as its non-streamed twin, and an over-cache prompt
+    the one-shot path's (MHA: the plain masked attention, as JAX routes
+    it, no K7); a /debug/profile window over SERVER_PROFILE_DISPATCHES
+    dispatches writes a trace holding exactly the K1 and K2 launches
+    counted between its start and stop; /healthz, /metrics, /debug/state
+    and /debug/slo read as they should; a `FleetRouter` over one
+    `HttpReplica` of the child gives the same tokens with no scrape error;
+    once the child is stopped, the capture downloaded after the first
+    wave replays token-identically through `cmd/replay.py`. Prints
+    startup seconds, /infer images/s and latency, /generate tokens/s and
+    TTFT over HTTP, and the kernels' launches."""
+    import urllib.request
+
+    from walkai_nos_tpu_torch.cmd.replay import main as replay_main
+    from walkai_nos_tpu_torch.models.decode import make_generate_fn
+    from walkai_nos_tpu_torch.utils import httpbench as hb
+
+    booted = server_boot()
+    work, log_path = booted["work"], booted["log_path"]
+    proc = None
+    try:
+        # The same seed's engine, in this process.
+        cfg = lm_mod.LM_SMALL
+        model = lm_mod.DecoderLM(cfg, device="cuda", seed=0)
+        prompts = _server_prompts(cfg.vocab_size, seed)
+        engine = ContinuousBatcher(cfg, model, **SERVER_ENGINE_KW)
+        cap = {}
+        with _captured(lm_mod, "fused_qkv_paged_attention", 12 * cfg.num_layers, cap):
+            rids = [engine.submit(p, max_new_tokens=64) for p in prompts]
+            ref = engine.run()
+        want = [ref[r] for r in rids]
+        rng = np.random.default_rng(seed + 23)
+        long_prompt = rng.integers(0, cfg.vocab_size, SERVER_FALLBACK_LEN).tolist()
+        want_long = make_generate_fn(cfg)(model, np.asarray([long_prompt], np.int32),
+                                          max_new_tokens=64).cpu()[0].tolist()
+        del engine
+        t0 = time.monotonic()
+        booted["thread"].join(330)
+        waited_s = time.monotonic() - t0
+        if "error" in booted or "base" not in booted:
+            _fail(f"server leg: the server did not start: {booted.get('error')}")
+        proc, base = booted["proc"], booted["base"]
+        kernels = _path_paged_kernels(da, cap, "server reference decode step 12")
+        del cap
+
+        def launches():
+            return hb.get_json(f"{base}/debug/kernels", timeout=30)["launches"]
+
+        def stats():
+            return hb.get_json(f"{base}/stats", timeout=30)
+
+        # /infer: client threads with keep-alive connections.
+        streams, per, batch = SERVER_INFER
+        s0, k0 = stats(), launches()
+
+        def infer_stream(_):
+            client = hb.InferClient(base, timeout=120)
+            lat = []
+            try:
+                for _ in range(per):
+                    t0 = time.perf_counter()
+                    client.post_infer(batch)
+                    lat.append(time.perf_counter() - t0)
+            finally:
+                client.close()
+            return lat
+
+        lats, infer_wall = _concurrently(infer_stream, list(range(streams)))
+        s1, k1 = stats(), launches()
+        lat = sorted(x for stream in lats for x in stream)
+        n_req, n_img = streams * per, streams * per * batch
+        d_img, d_req = s1["images"] - s0["images"], s1["requests"] - s0["requests"]
+        d_batches = s1["batches"] - s0["batches"]
+        if (d_img, d_req) != (n_img, n_req) or not 0 < d_batches < n_req:
+            _fail(f"server leg: /stats counted {d_img} images, {d_req} requests in "
+                  f"{d_batches} batches for {n_req} requests of {batch}")
+        per_bucket = {}
+        for b in SERVER_BUCKETS:
+            before = launches()["packed_attention"]
+            out = hb.post_infer(base, b, timeout=120)
+            per_bucket[b] = launches()["packed_attention"] - before
+            if out["batched_with"] != b:
+                _fail(f"server leg: a lone /infer of {b} batched with {out['batched_with']}")
+        k3 = launches()["packed_attention"] - k0["packed_attention"]
+        if set(per_bucket.values()) != {12} or k1["packed_attention"] - k0[
+                "packed_attention"] != 12 * d_batches:
+            _fail(f"server leg: K3 launches per bucket {per_bucket}, "
+                  f"{k1['packed_attention'] - k0['packed_attention']} for {d_batches} batches")
+        infer = {"requests": n_req, "images": n_img, "batches": d_batches,
+                 "padded_images": s1["padded_images"] - s0["padded_images"],
+                 "images_per_s": n_img / infer_wall, "wall_s": infer_wall,
+                 "p50_s": lat[len(lat) // 2], "p99_s": lat[min(len(lat) - 1,
+                                                              int(0.99 * len(lat)))],
+                 "k3_per_bucket": per_bucket, "k3_launches": k3,
+                 "model_ceiling_images_per_s": s1["model_ceiling_images_per_s"],
+                 "fence_rtt_s": s1["fence_rtt_s"]}
+
+        # /generate: 8 concurrent greedy requests, one streamed, one over the
+        # engine's cache (the one-shot path).
+        g0 = launches()
+        outs, gen_wall = _concurrently(
+            lambda p: hb.post_json(f"{base}/generate", {"prompt": p}, timeout=120),
+            prompts)
+        got = [o["tokens"] for o in outs]
+        if got != want:
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            _fail(f"server leg: /generate requests {bad} gave other tokens than the "
+                  f"in-process engine")
+        if not all(o["batched"] and o["fingerprint"] for o in outs):
+            _fail("server leg: a /generate response not batched or without fingerprint")
+        g1 = launches()
+        events, sse_first_s = _sse(base, {"prompt": prompts[0], "stream": True})
+        streamed = [t for e in events if "tokens" in e for t in e["tokens"]]
+        if streamed != got[0] or events[-1].get("n_tokens") != 64:
+            _fail(f"server leg: the streamed tokens differ from the non-streamed "
+                  f"({len(streamed)} tokens, last event {events[-1]})")
+        k7_0 = launches()["decode_attention"]
+        long_out = hb.post_json(f"{base}/generate", {"prompt": long_prompt}, timeout=120)
+        k7 = launches()["decode_attention"] - k7_0
+        # LM_SMALL is MHA without `decode_kernel`: its dense cache takes the
+        # plain masked attention, as JAX's takes XLA's, and K7 stays idle.
+        if long_out["tokens"] != want_long or "batched" in long_out or k7 != 0:
+            _fail(f"server leg: the one-shot path gave other tokens or launched "
+                  f"{k7} K7")
+        # The capture of that traffic, replayed once the child is stopped.
+        with urllib.request.urlopen(f"{base}/debug/capture/download", timeout=60) as resp:
+            blob = resp.read()
+        cap_path = os.path.join(work, "capture-download.jsonl")
+        with open(cap_path, "wb") as f:
+            f.write(blob)
+        generate, profile, path_launches = _server_checks(
+            base, hb, router_mod, prompts, want, outs, got, gen_wall,
+            sse_first_s, events, k7, g0, g1, work)
+    finally:
+        booted["thread"].join(330)
+        if proc is None:
+            proc = booted.get("proc")
+        if proc is not None:
+            hb.kill_server(proc)
+        os.makedirs("chiprun_out", exist_ok=True)
+        if os.path.exists(log_path):
+            shutil.copy(log_path, os.path.join("chiprun_out", "server.log"))
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):  # the CLI's summary line
+        rc = replay_main([cap_path, "--init-seed", "0", "--json",
+                          "--flight-dir", os.path.join(work, "flight")])
+    replay_s = time.monotonic() - t0
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or summary["divergent"] != 0:
+        _fail(f"server leg: the downloaded capture did not replay: {summary}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return {
+        "model": {"vit": "YOLOS-small (VIT_SMALL)", "lm": "LM_SMALL", "layers": cfg.num_layers},
+        "startup_s": booted["startup_s"], "startup_waited_s": waited_s,
+        "infer": infer, "generate": generate, "profile": profile,
+        "router_tokens_equal": True,
+        "capture": {"bytes": len(blob), "replay_s": replay_s, "summary": summary},
+        "launches": {**path_launches, "decode_attention": k7,
+                     "packed_attention": k3},
+        "kernels": kernels,
+    }
+
+
+def _server_checks(base, hb, router_mod, prompts, want, outs, got, gen_wall,
+                   sse_first_s, events, k7, g0, g1, work):
+    """The server leg after its first /generate wave: the wave's figures,
+    the profile window, the read endpoints and the router over an
+    `HttpReplica`. Returns (generate, profile, K1 / K2 launches of the
+    leg's /generate traffic)."""
+    import urllib.request
+
+    def launches():
+        return hb.get_json(f"{base}/debug/kernels", timeout=30)["launches"]
+
+    def stats():
+        return hb.get_json(f"{base}/stats", timeout=30)
+
+    ttft = sorted(o["ttft_seconds"] for o in outs)
+    generate = {
+        "requests": len(prompts), "new_tokens_each": 64,
+        "tokens_per_s": sum(len(t) for t in got) / gen_wall, "wall_s": gen_wall,
+        "ttft_engine_p50_s": ttft[len(ttft) // 2], "ttft_engine_max_s": ttft[-1],
+        "http_s": sorted(o["generate_time_seconds"] for o in outs),
+        "sse_first_token_s": sse_first_s, "sse_events": len(events),
+        "k1_k2_first_wave": {k: g1[k] - g0[k] for k in ("paged_attention", "qkv_rope")},
+        "k7_one_shot": k7,
+    }
+
+    # A profile window over the next dispatches.
+    prof_dir = os.path.join(work, "profile")
+    armed = hb.post_json(f"{base}/debug/profile",
+                         {"dispatches": SERVER_PROFILE_DISPATCHES,
+                          "logdir": prof_dir}, timeout=30)
+    if armed["remaining_dispatches"] != SERVER_PROFILE_DISPATCHES:
+        _fail(f"server leg: /debug/profile armed {armed}")
+    outs, _ = _concurrently(
+        lambda p: hb.post_json(f"{base}/generate", {"prompt": p}, timeout=120),
+        prompts[:4])
+    if [o["tokens"] for o in outs] != want[:4]:
+        _fail("server leg: the profiled requests gave other tokens")
+    deadline = time.monotonic() + 60
+    while True:
+        status = hb.get_json(f"{base}/debug/profile", timeout=30)
+        if status["completed_windows"] >= 1 or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    window = hb.get_json(f"{base}/debug/kernels", timeout=30)["profile_window"]
+    path = status["last_trace"]
+    if (status["completed_windows"] != 1 or status["last_error"] is not None
+            or not path or not os.path.exists(path) or window is None
+            or window["decode_attention"]):
+        _fail(f"server leg: profile status {status}, window {window}")
+    trace_bytes = os.path.getsize(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    rows = [(e.get("dur", 0), 1, e["name"]) for e in events
+            if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    seen = _check_window(rows, window, {"paged_attention": "decode_mma_kernel",
+                                        "qkv_rope": "qkv_mma_kernel"})
+    del events, rows
+    profile = {"dispatches": SERVER_PROFILE_DISPATCHES, "trace_bytes": trace_bytes,
+               "sentinel_launches": seen,
+               "window_launches": {k: window[k] for k in ("paged_attention",
+                                                          "qkv_rope")}}
+
+    # The read endpoints.
+    health = hb.get_json(f"{base}/healthz", timeout=30)
+    eng = health["engine"]
+    if not (health["ok"] and isinstance(health["monotonic_s"], float)
+            and eng["alive"] and eng["slots"] == 4 and not eng["has_work"]):
+        _fail(f"server leg: /healthz {health}")
+    with urllib.request.urlopen(f"{base}/metrics", timeout=30) as resp:
+        text = resp.read().decode()
+    bad = [ln for ln in text.splitlines()
+           if ln and not ln.startswith("#") and not PROM_SAMPLE.match(ln)]
+    if bad or "# TYPE cb_requests_submitted_total counter" not in text:
+        _fail(f"server leg: /metrics lines {bad[:3]}")
+    state = hb.get_json(f"{base}/debug/state", timeout=30)["engine"]
+    pool = state["pool"]
+    if (pool["free"] + pool["parked"] + pool["in_use"]
+            != pool["blocks_total"] - pool["scratch_blocks"]
+            or state["tp"]["tp_devices"] != 1 or not state["attrib"]["kinds"]):
+        _fail(f"server leg: /debug/state pool {pool}, tp {state['tp']}")
+    slo = hb.get_json(f"{base}/debug/slo", timeout=30)["engine"]
+    if set(slo["windows"]) != {"ttft", "tpot", "dispatch"}:
+        _fail(f"server leg: /debug/slo {slo}")
+    final = stats()
+    if (final["device_kind"] != torch.cuda.get_device_name(0)
+            or final["cb_tp"]["enabled"] or not final["peak_bf16_flops"]):
+        _fail(f"server leg: /stats device {final['device_kind']}, cb_tp {final['cb_tp']}")
+
+    # The fleet router over one HTTP replica of the child.
+    replica = router_mod.HttpReplica(base, name="server", workers=4)
+    try:
+        router = router_mod.FleetRouter([replica], seed=0)
+        r_ids = [router.submit(p, max_new_tokens=64) for p in prompts[:4]]
+        records, deadline = {}, time.monotonic() + 120
+        while len(records) < len(r_ids) and time.monotonic() < deadline:
+            router.step()
+            records.update(router.drain_done_records())
+            time.sleep(0.005)  # remote work: the driver need not spin
+        scrape = replica.scrape_error_stats()
+    finally:
+        replica.close()
+    if [records.get(r, {}).get("tokens") for r in r_ids] != want[:4]:
+        _fail("server leg: the router over HttpReplica gave other tokens")
+    if any(scrape["counts"].values()):
+        _fail(f"server leg: scrape errors {scrape}")
+    k_end = launches()
+    path_launches = {k: k_end[k] - g0[k] for k in ("paged_attention", "qkv_rope")}
+    if min(path_launches.values()) <= 0:
+        _fail(f"server leg: K1/K2 launches {path_launches}")
+
+    return generate, profile, path_launches
 
 
 def unfused_phase(ContinuousBatcher, DecoderLM, da, cfg, seed: int) -> dict:
@@ -5418,6 +5841,25 @@ def main() -> int:
           f"{fleet['flight_triggers']}, anomaly flagged {fleet['anomaly_flagged']}",
           flush=True)
     phase_end_s['fleet'] = time.monotonic() - start
+    server = server_phase(ContinuousBatcher, lm_mod, da, router_mod, args.seed)
+    print(json.dumps({"server": server}), flush=True)
+    inf, gen = server["infer"], server["generate"]
+    print(f"Demo server on {smi} (YOLOS-small /infer, LM_SMALL /generate at "
+          f"{server['model']['layers']} layers, loop_steps 8): startup "
+          f"{server['startup_s']:.2f} s (beside the leg's in-process reference; "
+          f"the leg waited {server['startup_waited_s']:.2f} s more); /infer {inf['images_per_s']:.1f} images/s "
+          f"({inf['requests']} requests of {SERVER_INFER[2]} from {SERVER_INFER[0]} "
+          f"clients in {inf['batches']} batches), p50 {inf['p50_s']:.4f} s, p99 "
+          f"{inf['p99_s']:.4f} s, K3 per bucket {inf['k3_per_bucket']}; /generate "
+          f"{gen['tokens_per_s']:.1f} tokens/s ({gen['requests']} x "
+          f"{gen['new_tokens_each']}), TTFT p50 {gen['ttft_engine_p50_s']:.4f} s in "
+          f"the engine, SSE first token {gen['sse_first_token_s']:.4f} s over HTTP; "
+          f"launches K1 {server['launches']['paged_attention']}, K2 "
+          f"{server['launches']['qkv_rope']}, K7 {server['launches']['decode_attention']}, "
+          f"K3 {server['launches']['packed_attention']}; profile window K1/K2 "
+          f"{server['profile']['window_launches']}; capture replayed in "
+          f"{server['capture']['replay_s']:.2f} s", flush=True)
+    phase_end_s['server'] = time.monotonic() - start
     loop_serve = loop_serving_phase(ContinuousBatcher, da, model, cfg, serve_prompts)
     loop_serve["profile"] = window = run_window("loop_serving", args.seed)
     print(json.dumps({"loop_serving": loop_serve}), flush=True)
@@ -5696,16 +6138,18 @@ def main() -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             })
-    # The sp, transfer, capture and fleet legs run K2 + K1 at steps 1:
-    # launches counted by the sp-on run, by the transfer leg's greedy
-    # migration (source and target), by the captured run and by the
-    # fleet's replicas, each kernel checked and timed on one of the leg's
-    # own calls.
+    # The sp, transfer, capture, fleet and server legs run K2 + K1 at steps
+    # 1: launches counted by the sp-on run, by the transfer leg's greedy
+    # migration (source and target), by the captured run, by the fleet's
+    # replicas and by the demo server's /generate traffic, each kernel
+    # checked and timed on one of the leg's own calls (the server's: its
+    # in-process reference engine's, at LM_SMALL's shape).
     for leg, launched, measured in (
             ("sp", sp_serve["sp_on"]["launches"], sp_serve["kernels"]),
             ("xfer", xfer["b_greedy"]["launches"], xfer["kernels"]),
             ("capture", capture["captured"]["launches"], capture["kernels"]),
-            ("fleet", fleet["launches"], fleet["kernels"])):
+            ("fleet", fleet["launches"], fleet["kernels"]),
+            ("server", server["launches"], server["kernels"])):
         for name in ("paged_attention", "qkv_rope"):
             source, replaces = decode_sites[name]
             t = measured[name]
@@ -5716,6 +6160,19 @@ def main() -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             })
+    # The demo server's /infer runs K3 at YOLOS-small's shape (times of the
+    # ViT kernel phase), launched by the leg's /infer traffic.
+    t = next(r for r in vrows if r["kernel"] == "packed_attention" and r["case"] == "vit")
+    kernels.append({
+        "name": "packed_attention_server", "route": "cuda",
+        "source": f"{src}flash_attention.cu",
+        "replaces": "walkai_nos_tpu/ops/attention.py:559",
+        "launches": server["launches"]["packed_attention"],
+        "max_abs_err": next(k["max_abs_err"] for k in kernels
+                            if k["name"] == "packed_attention"),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    })
     # The LoRA leg runs K1 without injection, at steps 1 (armed decode) and
     # k+1 (armed verify), each checked and timed on one of its calls.
     for name, t in lora["kernels"].items():
@@ -5738,7 +6195,7 @@ def main() -> int:
             "serving": serve, "obs": obs, "loop_serving": loop_serve,
             "spec_serving": spec_serve,
             "sp_serving": sp_serve, "transfer": xfer, "capture_replay": capture,
-            "fleet": fleet,
+            "fleet": fleet, "server": server,
             "generate": generate, "speculative": speculative,
             "dense_serving": dense_serve, "exactness_f32": exact,
             "spec_exactness_f32": spec_exact,

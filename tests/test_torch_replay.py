@@ -52,8 +52,6 @@ torch.set_num_threads(1)
 FIELDS = dict(vocab_size=64, hidden_dim=32, num_layers=1, num_heads=2,
               max_seq_len=320, dtype="float32")
 ENGINE = dict(slots=2, cache_len=256, prompt_bucket=16, chunk_steps=2)
-# The blocks of JAX's debug_state() the port leaves to later slices.
-LATER_BLOCKS = ("tp",)
 
 
 def _jax_dev(self, a):
@@ -478,7 +476,7 @@ def test_flight_bundle_equals_jax(divergent):
     assert bundle == jbundle
     assert (bundle["replay_fingerprint"]["weights_crc32"]
             != bundle["capture_fingerprint"]["weights_crc32"])
-    assert set(state) == set(jstate) - set(LATER_BLOCKS)
+    assert set(state) == set(jstate)
 
 
 def test_triage_none_on_clean_replay(captures, params):
@@ -653,9 +651,9 @@ def _state_schedule(engine):
 @pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
 def test_debug_state_equals_jax(params, tmp_path, paged):
     """At the same point of the same run, JAX's `debug_state()` and the
-    port's hold the same keys, less the `tp` block of a later slice, and
-    the same values in the engine's own books (slots, prefilling, pool,
-    queue, prefix, spec, loop, sp, LoRA, the capture's tallies, and what
+    port's hold the same keys and the same values in the engine's own
+    books (slots, prefilling, pool, queue, prefix, spec, loop, tp at one
+    card, sp, LoRA, the capture's tallies, and what
     of the attribution and SLO blocks does not depend on wall time)."""
     # An SLO window longer than any run here, so the windows hold every
     # sample however slow the host.
@@ -670,11 +668,11 @@ def test_debug_state_equals_jax(params, tmp_path, paged):
     # One snapshot each: the SLO block's spans and quantiles read the clock.
     state = teng.debug_state()
     want, got = _json(jeng.debug_state()), _json(state)
-    assert list(got) == [k for k in want if k not in LATER_BLOCKS]
+    assert list(got) == list(want)
     for key in got:
         assert set(got[key]) == set(want[key]) if isinstance(got[key], dict) else True
     for key in ("paged", "queue_depth", "has_work", "slots", "prefilling", "pool",
-                "prefix", "spec", "loop", "sp", "lora"):
+                "prefix", "spec", "loop", "tp", "sp", "lora"):
         assert got[key] == want[key], key
     for key in ("enabled", "fingerprint", "records", "dropped", "max_bytes",
                 "max_files", "files"):

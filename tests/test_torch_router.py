@@ -5,8 +5,8 @@ package's (`walkai_nos_tpu/router/`), over scripted replicas, no engine.
   cases (`tests/test_router.py`: `TestPrefixKey`, `TestRoutingPolicy`,
   `TestReconcilerHysteresis`, `TestStragglerDetection`,
   `TestReconcilerTraceEvents`, `TestMetricsFederation`), run unchanged
-  against the port's router; the one case that needs `HttpReplica` is
-  left out with it;
+  against the port's router (the dead-pod case on the port's
+  `HttpReplica`);
 - both routers over identical scripted fleets driven by one seeded
   script (affinity, overload and power-of-two-choices re-points,
   round-robin, drains with and without the reconciler, scale-ups,
@@ -35,9 +35,7 @@ JAX_TESTS = port_copy("test_router")
 CLASSES = ("TestPrefixKey", "TestRoutingPolicy", "TestReconcilerHysteresis",
            "TestStragglerDetection", "TestReconcilerTraceEvents",
            "TestMetricsFederation")
-CASES = cases(JAX_TESTS, CLASSES, exclude=(
-    "TestRoutingPolicy.test_unreachable_replica_reads_as_max_load",
-))
+CASES = cases(JAX_TESTS, CLASSES)
 
 
 def test_the_copy_runs_the_port():
@@ -45,7 +43,7 @@ def test_the_copy_runs_the_port():
     assert JAX_TESTS["ScalePolicy"] is trouter.ScalePolicy
     assert JAX_TESTS["StaticSliceProvider"] is trouter.StaticSliceProvider
     assert JAX_TESTS["FlightRecorder"] is FlightRecorder
-    assert len(CASES) == 19
+    assert len(CASES) == 20
 
 
 @pytest.mark.parametrize("cls,name", CASES, ids=[f"{c}.{n}" for c, n in CASES])
@@ -55,11 +53,11 @@ def test_jax_case_on_the_port(cls, name, request):
 
 def test_surface_equals_jax_less_the_unported():
     assert set(trouter.__dict__) >= {
-        "FleetRouter", "prefix_key", "EngineReplica", "Reconciler",
+        "FleetRouter", "prefix_key", "EngineReplica", "HttpReplica", "Reconciler",
         "ScalePolicy", "StaticSliceProvider", "replica_load",
     }
     assert not hasattr(trouter, "PartitionerSliceProvider")
-    assert not hasattr(trouter, "HttpReplica")
+    assert trouter.HttpReplica.steps_locally is False
     assert tautoscale.__all__ == [
         n for n in jrouter.autoscale.__all__ if n != "PartitionerSliceProvider"
     ]

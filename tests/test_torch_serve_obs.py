@@ -61,10 +61,11 @@ CASES = {
     "capture": dict(capture=True),
     "dense": dict(paged=False, prompt_bucket=16),
 }
-# Series only a TP engine writes. The attribution and SLO layers' series
-# are written, as in JAX (the roofline and HBM gauges by neither package
-# on the CPU, where there is no bandwidth).
-UNWRITTEN = ("ici_step_bytes", "tp_devices_gauge")
+# Series only a TP engine writes (`cb_tp_devices` reads 1 on one device,
+# as JAX's). The attribution and SLO layers' series are written, as in
+# JAX (the roofline and HBM gauges by neither package on the CPU, where
+# there is no bandwidth).
+UNWRITTEN = ("ici_step_bytes",)
 # The non-time series whose values must agree.
 VALUES = (
     "submitted", "completed", "tokens", "errors", "dispatches",
@@ -422,11 +423,6 @@ def test_pool_overflow_label(tiny_params):
     assert engine.obs.errors.value({"reason": "pool_overflow"}) == 1
 
 
-def _later(d):
-    """A debug_state() without the block of a layer not ported yet."""
-    return {k: v for k, v in d.items() if k != "tp"}
-
-
 @pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
 def test_disabled_obs_views_equal_jax(tiny_params, paged):
     """obs=False: nothing recorded, the views keep JAX's keys with
@@ -451,13 +447,13 @@ def test_disabled_obs_views_equal_jax(tiny_params, paged):
             lora=engine.lora_stats(), quant=engine.quant_stats(),
             attrib=engine.attrib_stats(), slo=engine.slo_stats(),
             signals=(engine.saturation, engine.slo_ok),
-            state=_later(engine.debug_state()),
+            tp=engine.tp_stats(), state=engine.debug_state(),
         )
     port, want = views["port"], views["jax"]
     assert port == want
     assert port["occupancy"] == {"busy_slot_steps": 0, "total_slot_steps": 0,
                                  "occupancy": 0.0, "obs_disabled": True}
-    for view in ("kv", "prefix", "loop", "sp", "quant", "attrib", "slo"):
+    for view in ("kv", "prefix", "loop", "sp", "quant", "tp", "attrib", "slo"):
         assert port[view]["obs_disabled"] is True, view
     assert port["signals"] == (None, None)
     assert port["kv"]["kv_hbm_bytes_per_resident_token"] is None

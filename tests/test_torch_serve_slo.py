@@ -121,7 +121,7 @@ def test_attribution_and_slo_equal_jax(served, paged):
 def test_debug_state_blocks_equal_jax(served, paged):
     (jeng, _), (teng, _) = served["jax", paged], served["port", paged]
     got, want = teng.debug_state(), jeng.debug_state()
-    assert list(got) == [k for k in want if k != "tp"]
+    assert list(got) == list(want)
     assert set(got["attrib"]) == set(want["attrib"])
     assert set(got["slo"]) == set(want["slo"])
     for view in ("attrib", "slo"):

@@ -129,8 +129,10 @@ What differs from the JAX engine, and why:
   views (`slo_window_s`, `slo_objectives` as in JAX) and the composed
   saturation signal: `attrib_stats()`, `slo_stats()`, `saturation`,
   `slo_ok` and `debug_state()`'s `attrib` and `slo` blocks, what the
-  fleet router (`router/`) reads. `tp_stats` and `debug_state()`'s `tp`
-  block wait for tensor parallelism.
+  fleet router (`router/`) reads. `tp_stats()` and `debug_state()`'s
+  `tp` block report the one degree the port serves (tp 1: disabled, the
+  shard terms the global ones, no ICI bytes); tp > 1 waits for tensor
+  parallelism.
 - `prompt_bucket` is fingerprinted in paged mode, where, as in JAX, the
   lane does not read it.
 - The weights digest of `config_fingerprint()` covers the tree the
@@ -469,6 +471,7 @@ class ContinuousBatcher(BlockTransfer):
             hbm_bytes_per_s=bw,
             ici_bytes_per_token=tp_ici_bytes_per_token(self.cfg),
         )
+        self.obs.tp_devices_gauge.set(1)  # one card (tp_stats)
         # The sliding-window SLO layer and the composed saturation
         # signal (JAX :703-711); an unknown objective raises its
         # ValueError here.
@@ -949,6 +952,25 @@ class ContinuousBatcher(BlockTransfer):
             "weight_quant_seconds": round(self.obs.quant_seconds.value(), 6),
         }
 
+    def tp_stats(self) -> dict:
+        """Tensor-parallel view (the JAX engine's `tp_stats()`, the /stats
+        `cb_tp` section and `debug_state()`'s `tp` block) at the one
+        degree the port serves: `enabled` False, `tp_devices` 1, no K/V
+        layout, the shard byte terms equal to the global ones and no ICI
+        traffic."""
+        return {
+            **self._off(),
+            "enabled": False,
+            "tp_devices": 1,
+            "kv_layout": None,
+            "kv_heads_served": self.cfg.kv_heads,
+            "param_bytes": self._param_bytes,
+            "param_shard_bytes": self._param_bytes,
+            "kv_shard_bytes_per_token": self._kv_bytes_per_token(),
+            "ici_bytes_per_token": tp_ici_bytes_per_token(self.cfg),
+            "ici_bytes_per_step": self.obs.ici_step_bytes.value(),
+        }
+
     def prefix_stats(self) -> dict:
         hits = int(self.obs.prefix_hits.value())
         misses = int(self.obs.prefix_misses.value())
@@ -1100,11 +1122,11 @@ class ContinuousBatcher(BlockTransfer):
 
     def debug_state(self) -> dict:
         """One JSON-safe snapshot of the engine (the JAX engine's
-        `debug_state()`, without its `tp` block): slots, prefilling
-        entries, the pool's books, and the prefix, spec, loop, quant, sp,
-        capture, attribution, SLO and LoRA views. The pool's
-        `in_use` is derived from the free and parked counts it is
-        reported beside, so the counts always sum to the pool."""
+        `debug_state()`): slots, prefilling entries, the pool's books, and
+        the prefix, spec, loop, quant, tp, sp, capture, attribution, SLO
+        and LoRA views. The pool's `in_use` is derived from the free and
+        parked counts it is reported beside, so the counts always sum to
+        the pool."""
         pool = self.pool
         if self.paged:
             free, parked = len(pool.free_blocks), pool.parked_count()
@@ -1148,6 +1170,7 @@ class ContinuousBatcher(BlockTransfer):
             "spec": self.spec_stats(),
             "loop": self.loop_stats(),
             "quant": self.quant_stats(),
+            "tp": self.tp_stats(),
             "sp": self.sp_stats(),
             "capture": self.capture_stats(),
             "attrib": self.attrib_stats(),

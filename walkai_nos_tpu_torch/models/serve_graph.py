@@ -235,7 +235,11 @@ class DecodeLoop:
         bodies, per_body = [], None
         for i in range(self.L):
             graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(graph, pool=self._pool):
+            # Thread-local: a server's other threads (the ViT dispatcher,
+            # the one-shot generate path) keep launching while a fold is
+            # captured; only this thread's calls are checked.
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="thread_local"):
                 if i == 0:
                     self._prologue()
                 body(i, spec_k)

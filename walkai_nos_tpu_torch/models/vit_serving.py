@@ -1,8 +1,8 @@
 """The ViT detector's serving core: a coalescing micro-batcher.
 
 Port of the `/infer` path of `demos/tpu-sharing-comparison/app/main.py`
-without its HTTP layer (`/infer`, `/stats` and the LM endpoints wait for
-the torch demo app, ROADMAP "Fleet and tooling"):
+without its HTTP layer (the port's demo server, `app/main.py`, serves it
+over `/infer` and `/stats`):
 
 - `ViTServer.submit(n)` queues a request for n images;
 - one dispatcher thread (`_device_worker`) coalesces queued requests up
@@ -158,12 +158,13 @@ def _wait_fence(fence) -> None:
         fence.synchronize()
 
 
-def calibrate(infer, model, images, *, window_s: float = 4.0):
+def calibrate(infer, model, images, *, window_s: float = 4.0, batches: int = 4):
     """(fence_rtt_s, model_ceiling_images_per_s): the card's flat-out
     throughput on the served model through the dispatch + fence path the
-    server uses: a chain of forwards dispatched back to back, fenced
-    once, doubled until the window passes `window_s` (or 1024 batches);
-    best of two windows when the window is long enough to matter."""
+    server uses: a chain of at least 4 (`batches`) forwards dispatched
+    back to back, fenced once, doubled until the window passes
+    `window_s` (or 1024 batches); best of two windows when the window is
+    long enough to matter."""
     device = images.device
     tiny = torch.zeros((), device=device)
     rtts = []
@@ -176,7 +177,7 @@ def calibrate(infer, model, images, *, window_s: float = 4.0):
 
     infer(model, images)
     _wait_fence(_record_fence(device))  # warm
-    n = 4
+    n = max(4, int(batches))
     while True:
         t0 = time.perf_counter()
         for _ in range(n):

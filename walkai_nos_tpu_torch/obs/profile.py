@@ -9,6 +9,12 @@ it and writes its Chrome trace (`chrome://tracing`, Perfetto) into
 kernels are those launched between the first and the `n`-th call; the
 profiler waits for them when it exits.
 
+`counters`, when set, is a callable returning a dict of running counts
+(the kernel wrappers' launch counters, in the demo server): it is read
+where the profiler starts and where it stops, and `window_launches()`
+gives the last completed window's difference, the launches the window's
+trace must hold.
+
 A failure to start or stop is recorded in `status()["last_error"]` and
 disarms the hook instead of taking the serving loop down: profiling is a
 diagnostic, never a liveness risk. The unarmed cost is one attribute
@@ -37,6 +43,9 @@ class ProfileHook:
         self._last_error: str | None = None
         self._last_trace: str | None = None
         self._prof = None
+        self.counters = None
+        self._counts_at_start: dict | None = None
+        self._window_launches: dict | None = None
 
     @classmethod
     def from_env(cls, env=os.environ) -> "ProfileHook":
@@ -96,6 +105,8 @@ class ProfileHook:
             prof = profile(activities=activities)
             prof.__enter__()
             self._prof = prof
+            if self.counters is not None:
+                self._counts_at_start = dict(self.counters())
             return True
         except Exception as e:  # noqa: BLE001 — diagnostics must not kill serving
             self._last_error = f"start_trace: {e!r}"
@@ -103,6 +114,11 @@ class ProfileHook:
 
     def _stop(self) -> None:
         prof, self._prof = self._prof, None
+        if self.counters is not None and self._counts_at_start is not None:
+            start = self._counts_at_start
+            self._window_launches = {
+                k: v - start.get(k, 0) for k, v in self.counters().items()
+            }
         try:
             prof.__exit__(None, None, None)
             os.makedirs(self._logdir, exist_ok=True)
@@ -114,6 +130,15 @@ class ProfileHook:
             self._last_trace = path
         except Exception as e:  # noqa: BLE001
             self._last_error = f"stop_trace: {e!r}"
+
+    def window_launches(self) -> dict | None:
+        """What `counters` counted between the last completed window's
+        profiler start and stop (None without `counters` or before a
+        window completed)."""
+        with self._lock:
+            return None if self._window_launches is None else dict(
+                self._window_launches
+            )
 
     def status(self) -> dict:
         """JAX's status keys, plus `last_trace`: the file the last

@@ -6,13 +6,14 @@ surface (port of `walkai_nos_tpu/router/`).
   `submit()` / `step()` / `drain_done_records()`; block shipping,
   disaggregated prefill / decode roles, migrate-first drains, the fleet
   capture and the fleet telemetry plane;
-- `router.replica`: `EngineReplica`, an in-process `ContinuousBatcher`;
+- `router.replica`: `EngineReplica`, an in-process `ContinuousBatcher`,
+  and `HttpReplica`, a demo-server pod (`app/main.py`) over HTTP;
 - `router.autoscale`: the reconciler (hysteresis and cooldown over
   `cb_saturation` / `slo_ok` / queue depth; drain-then-release
   scale-down) and `StaticSliceProvider`.
 
-Not ported yet: the canary role, `HttpReplica` and
-`PartitionerSliceProvider` (ROADMAP).
+Not ported yet: the canary role and `PartitionerSliceProvider`
+(ROADMAP).
 """
 
 from walkai_nos_tpu_torch.router.autoscale import (  # noqa: F401
@@ -22,4 +23,7 @@ from walkai_nos_tpu_torch.router.autoscale import (  # noqa: F401
     replica_load,
 )
 from walkai_nos_tpu_torch.router.core import FleetRouter, prefix_key  # noqa: F401
-from walkai_nos_tpu_torch.router.replica import EngineReplica  # noqa: F401
+from walkai_nos_tpu_torch.router.replica import (  # noqa: F401
+    EngineReplica,
+    HttpReplica,
+)
